@@ -1,0 +1,108 @@
+"""The paper's Table II model configurations and their reduced variants.
+
+A copy of ``repro.configs.paper_tasks`` (feed-forward tasks only; the
+stream tasks need the recurrent cell, which is not ported yet).
+"""
+from __future__ import annotations
+
+from repro_torch.core.assemble import AssembleConfig, LayerSpec
+
+
+def mnist(aug: bool = False) -> AssembleConfig:
+    """w_l=[2160,360,2160,360,60,10], a_l=[0,1,0,1,1,1], F=6, beta=[1]*5+[6]."""
+    del aug
+    units = [2160, 360, 2160, 360, 60, 10]
+    asm = [False, True, False, True, True, True]
+    bits = [1, 1, 1, 1, 1, 6]
+    return AssembleConfig(
+        in_features=784, input_bits=1, input_signed=False,
+        layers=tuple(LayerSpec(u, 6, b, a)
+                     for u, b, a in zip(units, bits, asm)),
+        subnet_width=64, subnet_depth=2, skip_step=2)
+
+
+def jsc_cernbox() -> AssembleConfig:
+    """JSC (CERNBox): 8b inputs, 4b activations, 8b logits."""
+    units = [320, 160, 80, 40, 20, 10, 5]
+    asm = [False, True, True, True, True, True, True]
+    fan = [1, 2, 2, 2, 2, 2, 2]
+    bits = [4, 4, 4, 4, 4, 4, 8]
+    return AssembleConfig(
+        in_features=16, input_bits=8, input_signed=True,
+        layers=tuple(LayerSpec(u, f, b, a)
+                     for u, f, b, a in zip(units, fan, bits, asm)),
+        subnet_width=64, subnet_depth=2, skip_step=2)
+
+
+def jsc_openml() -> AssembleConfig:
+    """JSC (OpenML): 6b inputs, 3b activations, 8b logits."""
+    units = [320, 160, 80, 40, 20, 10, 5]
+    asm = [False, True, True, True, True, True, True]
+    fan = [1, 2, 2, 2, 2, 2, 2]
+    bits = [3, 3, 3, 3, 3, 3, 8]
+    return AssembleConfig(
+        in_features=16, input_bits=6, input_signed=True,
+        layers=tuple(LayerSpec(u, f, b, a)
+                     for u, f, b, a in zip(units, fan, bits, asm)),
+        subnet_width=64, subnet_depth=2, skip_step=2)
+
+
+def nid() -> AssembleConfig:
+    """NID: w_l=[60,20,9,3,1], F=[6,3,3,3,3], 1b inputs, 2b activations."""
+    units = [60, 20, 9, 3, 1]
+    asm = [False, True, False, True, True]
+    fan = [6, 3, 3, 3, 3]
+    bits = [2, 2, 2, 2, 2]
+    return AssembleConfig(
+        in_features=593, input_bits=1, input_signed=False,
+        layers=tuple(LayerSpec(u, f, b, a)
+                     for u, f, b, a in zip(units, fan, bits, asm)),
+        subnet_width=16, subnet_depth=2, skip_step=2)
+
+
+def reduced(task: str) -> AssembleConfig:
+    """Small same-shape variants of ``mnist``, ``jsc`` and ``nid``."""
+    if task == "mnist":
+        return AssembleConfig(
+            in_features=784, input_bits=1, input_signed=False,
+            layers=(LayerSpec(144, 6, 1, False), LayerSpec(24, 6, 1, True),
+                    LayerSpec(60, 4, 1, False), LayerSpec(10, 6, 4, True)),
+            subnet_width=16, subnet_depth=2, skip_step=2)
+    if task == "jsc":
+        return AssembleConfig(
+            in_features=16, input_bits=3, input_signed=True,
+            layers=(LayerSpec(40, 2, 3, False), LayerSpec(20, 2, 3, True),
+                    LayerSpec(10, 2, 3, True), LayerSpec(5, 2, 6, True)),
+            subnet_width=16, subnet_depth=2, skip_step=2)
+    if task == "nid":
+        return AssembleConfig(
+            in_features=593, input_bits=1, input_signed=False,
+            layers=(LayerSpec(24, 6, 2, False), LayerSpec(8, 3, 2, True),
+                    LayerSpec(4, 2, 2, True), LayerSpec(1, 4, 2, True)),
+            subnet_width=16, subnet_depth=2, skip_step=2)
+    raise ValueError(task)
+
+
+# name -> (dataset name, config factory): the four full Table-II designs
+# plus the three reduced surrogates
+TASKS = {
+    "mnist": ("mnist", mnist),
+    "jsc_cernbox": ("jsc_cernbox", jsc_cernbox),
+    "jsc_openml": ("jsc_openml", jsc_openml),
+    "nid": ("nid", nid),
+    "mnist_reduced": ("mnist", lambda: reduced("mnist")),
+    "jsc_reduced": ("jsc_openml", lambda: reduced("jsc")),
+    "nid_reduced": ("nid", lambda: reduced("nid")),
+}
+
+
+def task_names():
+    """Names of every registered task."""
+    return tuple(TASKS)
+
+
+def task_config(name: str) -> AssembleConfig:
+    """Base architecture of a registered task."""
+    if name not in TASKS:
+        raise ValueError(f"unknown task {name!r}; known: {sorted(TASKS)}")
+    return TASKS[name][1]()

@@ -1,0 +1,71 @@
+"""Dispatch over the kernels (the port of ``repro.kernels.ops``).
+
+Dispatch is by the tensors' device, in place of the reference's
+``on_tpu``/``pallas_interpret``: a CUDA tensor goes to the hand-written
+kernel, a CPU tensor to the kernel's plain PyTorch version.  There is no
+path that swaps a kernel for its plain version on a CUDA tensor: a kernel
+that fails to build or launch raises.
+
+* :func:`lut_lookup` -- ``take`` (gather oracle), ``onehot`` (one-hot
+  formulation) or ``pallas`` (K3).
+* :func:`lut_cascade` -- the fused cascade behind the ``fused`` backend:
+  K1 or K2 by the plan's tuning and the shared-memory fit, or the plain
+  cascade where the plan pins ``impl="xla"`` (as in the reference, where
+  ``"xla"`` is not a kernel).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import autotune, lut_cascade as _lc, lut_gather, ref
+
+
+def lut_lookup(table: torch.Tensor, addr: torch.Tensor, *,
+               impl: str = "take") -> torch.Tensor:
+    """Batched L-LUT lookup. table ``[U, T]``, addr ``[B, U]`` -> ``[B, U]``."""
+    if impl == "take":
+        return ref.lut_lookup_ref(table, addr)
+    if impl == "onehot":
+        return ref.lut_lookup_onehot_ref(table, addr)
+    if impl == "pallas":
+        return lut_gather.lut_lookup(table, addr)
+    raise ValueError(f"unknown lut_lookup impl {impl!r}")
+
+
+def lut_cascade(codes: torch.Tensor, amat, tables: torch.Tensor, *,
+                layers, mappings=None, tuning=None,
+                operands: Optional[_lc.CascadeOperands] = None
+                ) -> torch.Tensor:
+    """Whole-network fused cascade.
+
+    ``amat`` is accepted for the reference's signature and ignored: the
+    kernels form addresses from ``mappings``.  ``tuning`` is a
+    :class:`~repro_torch.kernels.autotune.KernelTuning` or its meta dict.
+    ``operands`` are the kernels' packed inputs (:func:`lut_cascade.prepare`)
+    when the caller caches them.
+    """
+    del amat
+    t = tuning if isinstance(tuning, autotune.KernelTuning) \
+        else autotune.KernelTuning.from_meta(tuning)
+    if t.impl not in (None, "xla", "pallas"):
+        raise ValueError(f"unknown lut_cascade impl {t.impl!r}")
+    if t.mode not in ("resident", "streamed"):
+        raise ValueError(f"unknown lut_cascade mode {t.mode!r}")
+    layers = tuple(tuple(int(v) for v in l) for l in layers)
+    if not _lc.is_v2_layers(layers) or mappings is None:
+        raise ValueError("lut_cascade needs v2 layer metadata and mappings "
+                         "(re-plan the backend)")
+    if codes.device.type == "cpu" or t.impl == "xla":
+        return _lc.lut_cascade_plain(codes, tables, mappings, layers)
+    if operands is None:
+        operands = _lc.prepare(tables, layers, mappings)
+    codes = codes.to(torch.int32).contiguous()
+    mode = t.mode
+    if mode == "resident" and autotune.hopper_mode(
+            layers, tables.element_size()) != "resident":
+        mode = "streamed"
+    if mode == "resident":
+        return _lc.lut_cascade_resident(codes, operands)
+    return _lc.lut_cascade_streamed(codes, operands, unit_tile=t.unit_tile)
