@@ -4,18 +4,26 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``src/repro_torch``, holds
-each against its plain PyTorch version on the card at the main path's
-shapes, serves full-width ``mnist`` (fused backend, streamed kernel K2) and
-full ``nid`` (fused backend, resident kernel K1; per-layer ``pallas``
-backend, lookup kernel K3) from a saved and reloaded artifact through
-``LUTEngine``, checks the served codes against the ``take`` backend on the
-card and the plain CPU path, and times every kernel.  Weights are random,
-drawn with ``numpy.random.RandomState(seed)``.
+each against its plain PyTorch version on the card at the main paths'
+shapes, and drives both main paths:
 
-Any failed phase exits nonzero.  The last two lines of standard output are
-a JSON object with every kernel's launches, error and times, then
-``{"ok": true, "device": {...}}``.  A full report goes to
-``build/chip_smoke/report.json``.  Imports nothing of JAX.
+* serving (slice 1): full-width ``mnist`` (fused backend, streamed kernel
+  K2) and full ``nid`` (fused backend, resident kernel K1; per-layer
+  ``pallas`` backend, lookup kernel K3) from a saved and reloaded artifact
+  through ``LUTEngine``, with random tables drawn with
+  ``numpy.random.RandomState(seed)``;
+* the toolflow (slice 2): full-width ``mnist`` pre-trained dense, pruned,
+  re-trained and folded through the per-unit affine kernel K4, then saved,
+  reloaded and served; one training step on the card against the CPU;
+  ``nid_reduced`` trained to the reference test's accuracy gate.
+
+Served codes are checked against the ``take`` backend on the card and the
+plain CPU path, folded codes against the quantized model, and every kernel
+is timed.  Any failed phase exits nonzero.  The last three lines of
+standard output are a JSON object with every kernel's launches, error and
+times, the card's ``name, power.limit``, then ``{"ok": true, "device":
+{...}}``.  A full report goes to ``build/chip_smoke/report.json``.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -32,12 +40,28 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor f32 rate, used for int32
-SOURCE = "src/repro_torch/kernels/csrc/lut_kernels.cu"
+F32_FLOPS_PER_S = 67e12       # H100 SXM non-tensor f32 FMA rate (K4's unit)
+SOURCES = {
+    "lut_cascade_resident": "src/repro_torch/kernels/csrc/lut_kernels.cu",
+    "lut_cascade_streamed": "src/repro_torch/kernels/csrc/lut_kernels.cu",
+    "lut_lookup": "src/repro_torch/kernels/csrc/lut_kernels.cu",
+    "unit_affine": "src/repro_torch/kernels/csrc/subnet_mlp.cu",
+}
 REPLACES = {
     "lut_cascade_resident": "src/repro/kernels/lut_cascade.py:136",
     "lut_cascade_streamed": "src/repro/kernels/lut_cascade.py:193",
     "lut_lookup": "src/repro/kernels/lut_gather.py:40",
+    "unit_affine": "src/repro/kernels/subnet_mlp.py:23",
 }
+# K4 against its plain version: (batch, units, din, dout, stride-0 unit
+# axis, activate) -- dense layer 0 of mnist, a hidden stage, the last
+# affine, backward dx of dense layer 0, a sparse first stage, the fold's
+# enumeration batch, and ragged batches
+K4_SHAPES = ((256, 2160, 784, 64, True, False), (256, 2160, 64, 64, False, True),
+             (256, 2160, 64, 1, False, False), (256, 2160, 64, 784, False, False),
+             (256, 2160, 6, 64, False, True), (64, 2160, 6, 64, False, True),
+             (1, 2160, 6, 64, False, True), (33, 2160, 6, 64, False, True),
+             (257, 2160, 6, 64, False, True))
 
 
 def fail(msg: str) -> None:
@@ -122,10 +146,370 @@ def cascade_work(layers, batch: int, table_bytes: int, map_bytes: int):
     return byts, ops
 
 
-def bound(byts: int, ops: int):
+def bound(byts: int, ops: int, ops_per_s: float = INT_OPS_PER_S):
     """(bound_ms, bound_by) from bytes and operations."""
-    t_b, t_o = byts / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def serve_artifact(path, backend: str, kname: str, xs, dev, smi: str,
+                   label: str) -> dict:
+    """Serve ``xs`` from the artifact at ``path`` through ``LUTEngine``
+    (block 1024, depth 2) on the card with the launch counts set to 0 just
+    before; fail unless ``kname`` launched and the codes equal ``take`` on
+    the card and the plain CPU path.  Returns the serving numbers."""
+    import numpy as np
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.kernels import build
+    from repro_torch.serve.lut_engine import LUTEngine
+
+    net = pipeline.CompiledLUTNetwork.load(path, device=dev)
+    eng = LUTEngine(net, block=1024, depth=2, backend=backend)
+    eng.run(xs[:1024])                       # warm-up, not counted
+    eng = LUTEngine(net, block=1024, depth=2, backend=backend)
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    reqs = eng.submit_many(xs)
+    while eng.queue:
+        eng.tick()
+    eng.drain()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    if counts.get(kname, 0) < 1:
+        fail(f"{label}: kernel {kname} was not launched (counts {counts})")
+    got = np.stack([r.codes for r in reqs])
+    take = net.predict_codes(xs, backend="take").cpu().numpy()
+    cpu = pipeline.CompiledLUTNetwork.load(path, device="cpu")
+    plain = cpu.predict_codes(xs, backend=backend).numpy()
+    if not (np.array_equal(got, take) and np.array_equal(got, plain)):
+        fail(f"{label}: served codes differ from take on the card or from "
+             "the plain CPU path")
+    logits = np.stack([r.logits for r in reqs])
+    if logits.shape != (len(xs), net.cfg.layers[-1].units) or \
+            not np.isfinite(logits).all():
+        fail(f"{label}: bad logits {logits.shape}")
+    rows = len(xs)
+    print(f"serve {label}: {rows} rows, codes == take == CPU, "
+          f"{rows / wall:,.0f} rows/s, p50 {eng.stats.latency_us(50):.0f}"
+          f" us, p99 {eng.stats.latency_us(99):.0f} us, launches "
+          f"{counts} [{smi}]", flush=True)
+    return {"rows": rows, "block": 1024, "depth": 2, "launches": counts,
+            "rows_per_s": rows / wall,
+            "p50_tick_us": eng.stats.latency_us(50),
+            "p99_tick_us": eng.stats.latency_us(99)}
+
+
+def k4_inputs(b, u, din, dout, stride0, gen, dev, dtype=None):
+    """K4 operands at the main path's scales: x in [0, 1) (quantized
+    activations are non-negative and O(1)), He-scaled weights, small bias;
+    with ``stride0`` the unit axis of x is a broadcast view (dense mode)."""
+    import math
+    import torch
+    dtype = dtype or torch.float32
+    x = torch.rand((b, din) if stride0 else (b, u, din), generator=gen)
+    w = torch.randn((u, din, dout), generator=gen) * math.sqrt(2.0 / din)
+    bias = torch.randn((u, dout), generator=gen) * 0.1
+    x, w, bias = (t.to(dev, dtype) for t in (x, w, bias))
+    if stride0:
+        x = x[:, None, :].expand(b, u, din)
+    return x, w, bias
+
+
+def check_unit_affine(dev) -> float:
+    """K4 against its plain version (TF32 off) at the main path's shapes,
+    in f32 and bf16, its gradient against autograd through the plain
+    version, and bit-identical rows at two batch sizes.  Returns the max
+    |diff| of the f32 forward checks; fails on any disagreement.
+
+    Tolerance: f32 rtol = atol = 1e-5 (tests/test_kernels.py), times
+    sqrt(din/64) where din > 64 (the two sides sum in different orders);
+    bf16 3e-2."""
+    import math
+    import torch
+    from repro_torch.kernels import subnet_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(7)
+    t0 = time.perf_counter()
+    worst = 0.0
+    for b, u, din, dout, s0, act in K4_SHAPES:
+        x, w, bias = k4_inputs(b, u, din, dout, s0, gen, dev)
+        got = subnet_mlp.unit_affine_cuda(x, w, bias, activate=act)
+        torch.cuda.synchronize()
+        want = subnet_mlp.unit_affine_plain(x, w, bias, activate=act)
+        tol = 1e-5 * max(1.0, math.sqrt(din / 64))
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
+            fail(f"K4 [{b},{u},{din}]x[{u},{din},{dout}]: max |diff| {err}")
+    x, w, bias = k4_inputs(256, 2160, 64, 64, False, gen, dev, torch.bfloat16)
+    got = subnet_mlp.unit_affine_cuda(x, w, bias, activate=True).float()
+    want = subnet_mlp.unit_affine_plain(x, w, bias, activate=True).float()
+    if not torch.allclose(got, want, rtol=3e-2, atol=3e-2):
+        fail(f"K4 bf16: max |diff| {float((got - want).abs().max())}")
+    # the fixed reduction order: one row gives the same bits at any batch
+    x, w, bias = k4_inputs(257, 2160, 6, 64, False, gen, dev)
+    full = subnet_mlp.unit_affine_cuda(x, w, bias, activate=True)
+    part = subnet_mlp.unit_affine_cuda(x[:33].contiguous(), w, bias,
+                                       activate=True)
+    if not torch.equal(full[:33], part):
+        fail("K4: rows differ between batch sizes 257 and 33")
+    # gradients: dx through K4 on w^T, dw and db plain, vs plain autograd
+    for b, u, din, dout, s0, act in ((256, 2160, 784, 64, True, False),
+                                     (256, 2160, 64, 64, False, True)):
+        x, w, bias = k4_inputs(b, u, din, dout, s0, gen, dev)
+        leaf = (x[:, 0, :] if s0 else x).clone().requires_grad_()
+        w.requires_grad_()
+        bias.requires_grad_()
+        xin = leaf[:, None, :].expand(b, u, din) if s0 else leaf
+        cot = torch.randn((b, u, dout), generator=gen).to(dev)
+        grads = []
+        for fn in (subnet_mlp.unit_affine, subnet_mlp.unit_affine_plain):
+            for t in (leaf, w, bias):
+                t.grad = None
+            (fn(xin, w, bias, activate=act) * cot).sum().backward()
+            grads.append([t.grad.clone() for t in (leaf, w, bias)])
+        for name, g, p in zip(("dx", "dw", "db"), *grads):
+            scale = float(p.abs().max())
+            if not torch.allclose(g, p, rtol=1e-4, atol=1e-5 * scale):
+                fail(f"K4 gradient {name} [{b},{u},{din}]->{dout}: max "
+                     f"|diff| {float((g - p).abs().max())} of {scale}")
+    torch.cuda.synchronize()
+    print(f"K4 vs plain: {len(K4_SHAPES)} f32 shapes max |diff| {worst:.3e}, "
+          "bf16 within 3e-2, gradients within rtol 1e-4, rows bit-identical "
+          f"across batch sizes ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return worst
+
+
+def finite_net(net) -> bool:
+    """Every float tensor of a parameter network is finite."""
+    import torch
+    from repro_torch.core import assemble
+    return all(bool(torch.isfinite(t).all()) for t in assemble.leaves(net)
+               if t.dtype.is_floating_point)
+
+
+def train_mnist(dev, smi: str, art_dir: Path) -> dict:
+    """The toolflow's main path at full width: ``mnist`` (Table II, uncut)
+    pre-trained dense for 3 steps, pruned, re-trained sparse for 3 steps
+    and folded on the card, then saved, reloaded and served (fused, K2).
+    Each stage runs with the launch counts set to 0 just before it; fails
+    unless K4 launched in every stage, loss and parameters are finite,
+    folded codes equal ``apply_codes`` on the card, and the served codes
+    equal ``take`` and the CPU path."""
+    import numpy as np
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.configs import paper_tasks
+    from repro_torch.core import assemble, folding
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import build
+
+    cfg = paper_tasks.task_config("mnist")
+    t0 = time.perf_counter()
+    data = synthetic.load("mnist", n_test=8192)
+    out = {"data_s": time.perf_counter() - t0, "steps": 3, "batch": 256}
+    flow = pipeline.Toolflow(cfg, pretrain_steps=3, retrain_steps=3,
+                             batch_size=256, device=dev)
+    launches = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        build.reset_counters()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t
+        launches[name] = build.launch_counts()
+        if launches[name].get("unit_affine", 0) < 1:
+            fail(f"mnist toolflow: K4 was not launched in {name} "
+                 f"(counts {launches[name]})")
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    stage("pretrain", lambda: flow.pretrain(data))
+    out["peak_bytes_pretrain"] = torch.cuda.max_memory_allocated()
+    flow.prune()
+    stage("retrain", lambda: flow.retrain())
+    comp = stage("compile", lambda: flow.compile(backend="fused"))
+    out["fold_s"] = out["compile_s"]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = launches
+    out["k4_launches"] = sum(c.get("unit_affine", 0)
+                             for c in launches.values())
+    for st in ("pretrain", "retrain"):
+        loss = flow.stages[st].metrics["final_loss"]
+        out[f"{st}_final_loss"] = loss
+        if not np.isfinite(loss):
+            fail(f"mnist toolflow: {st} loss is {loss}")
+    if not (finite_net(flow.dense_params) and finite_net(flow.params)):
+        fail("mnist toolflow: non-finite parameters")
+    print(f"mnist toolflow: pretrain {out['pretrain_s']:.2f} s, retrain "
+          f"{out['retrain_s']:.2f} s (3 steps each), fold {out['fold_s']:.3f}"
+          f" s, losses {out['pretrain_final_loss']:.4f} / "
+          f"{out['retrain_final_loss']:.4f}, peak memory "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB, K4 launches "
+          f"{[launches[k]['unit_affine'] for k in launches]} [{smi}]",
+          flush=True)
+
+    xs = data.x_test[:8192]
+    xt = torch.from_numpy(xs).to(dev)
+    folded = folding.folded_apply_codes(comp.folded(), xt)
+    quantized = assemble.apply_codes(flow.params, cfg, xt)
+    if not torch.equal(folded, quantized):
+        fail(f"mnist toolflow: folded codes differ from apply_codes on "
+             f"{int((folded != quantized).any(1).sum())} of 8192 rows")
+    cpu = assemble.params_from_reference(
+        assemble.params_to_reference(flow.params), device="cpu")
+    cpu_tables = folding.fold_network(cpu, cfg).tables
+    out["fold_entries"] = comp.num_entries()
+    out["fold_diff_card_vs_cpu"] = int(sum(
+        int((torch.from_numpy(t) != c).sum())
+        for t, c in zip(comp.tables, cpu_tables)))
+    print(f"mnist fold: folded == apply_codes on the card over 8192 rows; "
+          f"{out['fold_diff_card_vs_cpu']} of {out['fold_entries']} table "
+          "entries differ between a card fold and a CPU fold", flush=True)
+
+    comp.compile_backend("fused")
+    path = comp.save(str(art_dir / "mnist_trained_fused.npz"))
+    out["serve"] = serve_artifact(path, "fused", "lut_cascade_streamed", xs,
+                                  dev, smi, "mnist/trained/fused")
+    out["step"] = step_metrics(flow, cfg, data, dev, smi)
+    return out
+
+
+def step_metrics(flow, cfg, data, dev, smi: str) -> dict:
+    """Steady-state dense and sparse training steps of the flow's models:
+    host ms per step (synchronized, 3 steps after a warm-up), K4 launches
+    per step, and the device idle share of one profiled step."""
+    import torch
+    from repro_torch.core import assemble
+    from repro_torch.kernels import build
+    from repro_torch.train import lut_trainer, optim
+
+    xb = torch.from_numpy(data.x_train[:256]).to(dev)
+    yb = torch.from_numpy(data.y_train[:256]).to(dev)
+    ocfg = optim.AdamWConfig(lr=5e-3, weight_decay=1e-4)
+    out = {}
+    for mode, net, lasso in (("dense", flow.dense_params, 1e-4),
+                             ("sparse", flow.params, 0.0)):
+        state = [optim.adamw_init(assemble.leaves(net))]
+
+        def step():
+            state[0], _ = lut_trainer.train_step(
+                net, cfg, ocfg, state[0], xb, yb, dense=mode == "dense",
+                lasso=lasso)
+
+        step()
+        torch.cuda.synchronize()
+        build.reset_counters()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        k4 = build.launch_counts()["unit_affine"] / 3
+        wall, prof = profile(step, calls=1)
+        busy = sum(sec for _, sec in prof.values())
+        k4_dev = sum(sec for key, (_, sec) in prof.items()
+                     if "unit_affine_kernel" in key)
+        out[mode] = {"ms": ms, "k4_launches": k4, "profiled_wall_s": wall,
+                     "device_busy_s": busy, "k4_device_s": k4_dev,
+                     "device_idle_share": 1.0 - busy / wall}
+        print(f"train step {mode}: {ms:.2f} ms/step, {k4:.0f} K4 launches"
+              f"/step, profiled step wall {wall * 1e3:.2f} ms, device busy "
+              f"{busy * 1e3:.2f} ms (K4 {k4_dev * 1e3:.2f} ms), idle share "
+              f"{1.0 - busy / wall:.3f} [{smi}]", flush=True)
+    return out
+
+
+def step_card_vs_cpu(dev) -> dict:
+    """One training step of ``mnist_reduced`` (dense and sparse) on the card
+    and on the CPU from the same initial parameters and batch: the loss
+    and the updated parameters must agree at rtol 1e-4 (atol 1e-6).
+    Elements whose CPU gradient is below 1e-6 are rounding noise (the last
+    bias before BN, which BN cancels); Adam moves them by up to lr either
+    way, so they are held to 2 lr instead."""
+    import torch
+    from repro_torch.configs import paper_tasks
+    from repro_torch.core import assemble
+    from repro_torch.data import synthetic
+    from repro_torch.train import lut_trainer, optim
+
+    cfg = paper_tasks.reduced("mnist")
+    data = synthetic.load("mnist", n_train=256, n_test=16)
+    lr = 5e-3
+    ocfg = optim.AdamWConfig(lr=lr, weight_decay=1e-4)
+    out = {}
+    for dense in (True, False):
+        cpu = assemble.init(3, cfg, dense=dense, device="cpu")
+        card = assemble.params_from_reference(
+            assemble.params_to_reference(cpu), device=dev)
+        losses = []
+        for net, d in ((cpu, "cpu"), (card, dev)):
+            opt = optim.adamw_init(assemble.leaves(net))
+            _, loss = lut_trainer.train_step(
+                net, cfg, ocfg, opt, torch.from_numpy(data.x_train).to(d),
+                torch.from_numpy(data.y_train).to(d), dense=dense,
+                lasso=1e-4 if dense else 0.0)
+            losses.append(float(loss))
+        worst = 0.0
+        for pc, pg in zip(assemble.leaves(cpu), assemble.leaves(card)):
+            grad = pc.grad if isinstance(pc, torch.nn.Parameter) else None
+            pg = pg.detach().cpu()
+            pc = pc.detach()
+            if not pc.dtype.is_floating_point:
+                if not torch.equal(pc, pg):
+                    fail("card vs CPU step: an integer leaf changed")
+                continue
+            noise = (grad.abs() < 1e-6 if grad is not None
+                     else torch.zeros_like(pc, dtype=torch.bool))
+            diff = (pc - pg).abs()
+            worst = max(worst, float(diff[~noise].max()) if (~noise).any()
+                        else 0.0)
+            if not torch.allclose(pg[~noise], pc[~noise], rtol=1e-4,
+                                  atol=1e-6) or \
+                    bool((diff[noise] > 2 * lr + 1e-6).any()):
+                fail(f"card vs CPU step (dense={dense}): parameters differ "
+                     f"by up to {float(diff.max())}")
+        if abs(losses[0] - losses[1]) > 1e-4 * abs(losses[0]):
+            fail(f"card vs CPU step (dense={dense}): loss {losses}")
+        out["dense" if dense else "sparse"] = {"loss_cpu": losses[0],
+                                               "loss_card": losses[1],
+                                               "max_param_diff": worst}
+    print(f"one step card vs CPU (mnist_reduced): {out}", flush=True)
+    return out
+
+
+def train_nid(dev, smi: str) -> dict:
+    """``nid_reduced`` on the data and step counts of
+    tests/test_paper_flow.py, trained on the card: accuracy above 0.75 and
+    folded accuracy equal to the quantized model's."""
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.configs import paper_tasks
+    from repro_torch.data import synthetic
+
+    cfg = paper_tasks.reduced("nid")
+    data = synthetic.load("nid", n_train=4096, n_test=1024)
+    t0 = time.perf_counter()
+    flow = pipeline.Toolflow(cfg, pretrain_steps=120, retrain_steps=200,
+                             device=dev)
+    flow.run(data)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    acc = flow.accuracy(max_eval=1024)
+    facc = flow.accuracy(folded=True, max_eval=1024)
+    print(f"nid_reduced on the card: accuracy {acc:.4f}, folded {facc:.4f},"
+          f" {secs:.1f} s for 320 steps and the fold [{smi}]", flush=True)
+    if not acc > 0.75:
+        fail(f"nid_reduced accuracy {acc} <= 0.75")
+    if acc != facc:
+        fail(f"nid_reduced folded accuracy {facc} != {acc}")
+    return {"accuracy": acc, "folded_accuracy": facc, "seconds": secs}
 
 
 def main(seed: int) -> dict:
@@ -138,7 +522,8 @@ def main(seed: int) -> dict:
     try:
         from repro_torch import pipeline
         from repro_torch.configs import paper_tasks
-        from repro_torch.kernels import build, lut_cascade, lut_gather
+        from repro_torch.kernels import (build, lut_cascade, lut_gather,
+                                         subnet_mlp)
         from repro_torch.serve.lut_engine import LUTEngine
     except ImportError as e:
         fail(f"the port's package is not importable next to this script: {e}")
@@ -152,15 +537,18 @@ def main(seed: int) -> dict:
 
     # -- phase 2: build ------------------------------------------------------
     try:
-        lib_path, build_s, ptxas = build.build()
-        build.library()
+        built = build.build()
+        for src in built:
+            build.library(src)
     except RuntimeError as e:
         fail(f"kernel build: {e}")
-    print(f"build: {build_s:.1f} s -> {lib_path.name}", flush=True)
-    for line in ptxas.splitlines():
-        if "Used" in line or "Compiling entry" in line:
-            print("  ptxas " + line.split("ptxas info    :")[-1].strip())
-    report["build_s"] = build_s
+    report["build_s"] = {}
+    for src, (lib_path, build_s, ptxas) in built.items():
+        print(f"build: {build_s:.1f} s -> {lib_path.name}", flush=True)
+        for line in ptxas.splitlines():
+            if "Used" in line or "Compiling entry" in line:
+                print("  ptxas " + line.split("ptxas info    :")[-1].strip())
+        report["build_s"][src] = build_s
 
     # networks from the paper's Table II, random weights
     nets = {}
@@ -213,6 +601,7 @@ def main(seed: int) -> dict:
           f"({time.perf_counter() - t3:.1f} s)", flush=True)
     if any(errs.values()):
         fail(f"a kernel disagrees with its plain version: {errs}")
+    errs["unit_affine"] = check_unit_affine(dev)
 
     # -- phase 4: serve from a reloaded artifact through LUTEngine ----------
     art_dir = ROOT / "build" / "chip_smoke"
@@ -225,46 +614,16 @@ def main(seed: int) -> dict:
         src = nets[task]
         src.compile_backend(backend)
         path = src.save(str(art_dir / f"{task}_{backend}.npz"))
-        net = pipeline.CompiledLUTNetwork.load(path, device=dev)
-        xs = rs.uniform(-1.0, 1.0, (8192, net.cfg.in_features)
+        xs = rs.uniform(-1.0, 1.0, (8192, src.cfg.in_features)
                         ).astype(np.float32)
-        eng = LUTEngine(net, block=1024, depth=2, backend=backend)
-        eng.run(xs[:1024])                       # warm-up, not counted
-        eng = LUTEngine(net, block=1024, depth=2, backend=backend)
-        torch.cuda.synchronize()
-        build.reset_counters()
-        t0 = time.perf_counter()
-        reqs = eng.submit_many(xs)
-        while eng.queue:
-            eng.tick()
-        eng.drain()
-        wall = time.perf_counter() - t0
-        counts = build.launch_counts()
-        if counts.get(kname, 0) < 1:
-            fail(f"{task}/{backend}: kernel {kname} was not launched "
-                 f"(counts {counts})")
-        got = np.stack([r.codes for r in reqs])
-        take = net.predict_codes(xs, backend="take").cpu().numpy()
-        cpu = pipeline.CompiledLUTNetwork.load(path, device="cpu")
-        plain = cpu.predict_codes(xs, backend=backend).numpy()
-        if not (np.array_equal(got, take) and np.array_equal(got, plain)):
-            fail(f"{task}/{backend}: served codes differ from take on the "
-                 "card or from the plain CPU path")
-        logits = np.stack([r.logits for r in reqs])
-        if logits.shape != (8192, net.cfg.layers[-1].units) or \
-                not np.isfinite(logits).all():
-            fail(f"{task}/{backend}: bad logits {logits.shape}")
-        serving[f"{task}/{backend}"] = {
-            "rows": 8192, "block": 1024, "depth": 2, "launches": counts,
-            "rows_per_s": 8192 / wall,
-            "p50_tick_us": eng.stats.latency_us(50),
-            "p99_tick_us": eng.stats.latency_us(99),
-        }
-        print(f"serve {task}/{backend}: 8192 rows, codes == take == CPU, "
-              f"{8192 / wall:,.0f} rows/s, p50 {eng.stats.latency_us(50):.0f}"
-              f" us, p99 {eng.stats.latency_us(99):.0f} us, launches "
-              f"{counts} [{smi}]", flush=True)
+        serving[f"{task}/{backend}"] = serve_artifact(
+            path, backend, kname, xs, dev, smi, f"{task}/{backend}")
     report["serving"] = serving
+
+    # -- phase 6: the toolflow (slice 2) -------------------------------------
+    report["toolflow_mnist"] = train_mnist(dev, smi, art_dir)
+    report["step_card_vs_cpu"] = step_card_vs_cpu(dev)
+    report["nid_reduced"] = train_nid(dev, smi)
 
     # -- phase 5: kernel times at the main path's shapes (block 1024) -------
     # Each kernel's "ms" is one main-path block of 1024 rows: one launch of
@@ -320,18 +679,41 @@ def main(seed: int) -> dict:
                             for t, a in shapes],
         "bytes": sum(a.numel() * 8 + t.numel() * 4 for t, a in shapes),
         "ops": 0})
+    # K4 on dense layer 0 of mnist: x [256, 784] broadcast over 2160 units
+    # (stride 0), w [2160, 784, 64]; the yardstick is one baddbmm on
+    # [U, B, din] with TF32 off.  Bytes: x, w and bias read once, y written
+    # once; operations: one FMA (2 flops) per (row, unit, din, dout) at the
+    # non-tensor f32 rate, the only unit that keeps the kernel's numbers.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kb, ku, kdin, kdout = 256, 2160, 784, 64
+    x4, w4, b4 = k4_inputs(kb, ku, kdin, kdout, True,
+                           torch.Generator().manual_seed(seed), dev)
+    substr["unit_affine"] = "unit_affine_kernel"
+    kernels.append({
+        "name": "unit_affine", "task": "mnist dense layer 0",
+        "batch": kb, "calls": 10,
+        "kernel": lambda: subnet_mlp.unit_affine_cuda(x4, w4, b4),
+        "plain": lambda: subnet_mlp.unit_affine_plain(x4, w4, b4),
+        "library": lambda: torch.baddbmm(b4[:, None, :], x4.transpose(0, 1),
+                                         w4),
+        "bytes": (kb * kdin + ku * kdin * kdout + ku * kdout
+                  + kb * ku * kdout) * 4,
+        "ops": 2 * kb * ku * kdin * kdout, "ops_per_s": F32_FLOPS_PER_S})
     for k in kernels:
-        k["ms"] = per_call_ms(k["kernel"])
-        k["plain_ms"] = per_call_ms(k["plain"])
+        calls = k.pop("calls", 40)
+        k["ms"] = per_call_ms(k["kernel"], calls=calls)
+        k["plain_ms"] = per_call_ms(k["plain"], calls=calls)
         k["library_ms"] = (None if k["library"] is None
-                           else per_call_ms(k["library"]))
+                           else per_call_ms(k["library"], calls=calls))
         _, prof = profile(k["kernel"])
         hits = [v for key, v in prof.items() if substr[k["name"]] in key]
         k["device_ms"] = (sum(s for _, s in hits) * 1e3 / 10 if hits
                           else None)
-        k["bound_ms"], k["bound_by"] = bound(k["bytes"], k["ops"])
+        k["bound_ms"], k["bound_by"] = bound(
+            k["bytes"], k["ops"], k.pop("ops_per_s", INT_OPS_PER_S))
         for fn in ("kernel", "plain", "library"):
             del k[fn]
+    del x4, w4, b4
 
     # the engine under the profiler: device busy share of a serving pass
     for key, (task, backend) in (("mnist/fused", ("mnist", "fused")),
@@ -350,15 +732,22 @@ def main(seed: int) -> dict:
               f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / wall:.3f} "
               f"[{smi}]", flush=True)
     for k in kernels:
-        k["launches"] = serving[{"lut_cascade_streamed": "mnist/fused",
-                                 "lut_cascade_resident": "nid/fused",
-                                 "lut_lookup": "nid/pallas"}[k["name"]]
-                                ]["launches"][k["name"]]
+        if k["name"] == "unit_affine":
+            # the toolflow's main path: pretrain + retrain + compile
+            k["launches"] = report["toolflow_mnist"]["k4_launches"]
+            k["launches_per_step"] = {
+                m: v["k4_launches"]
+                for m, v in report["toolflow_mnist"]["step"].items()}
+        else:
+            k["launches"] = serving[{"lut_cascade_streamed": "mnist/fused",
+                                     "lut_cascade_resident": "nid/fused",
+                                     "lut_lookup": "nid/pallas"}[k["name"]]
+                                    ]["launches"][k["name"]]
         k["max_abs_err"] = errs[k["name"]]
         k["route"] = "cuda"
-        k["source"] = SOURCE
+        k["source"] = SOURCES[k["name"]]
         k["replaces"] = REPLACES[k["name"]]
-        print(f"time {k['name']} ({k['task']}, block of {b} rows): kernel "
+        print(f"time {k['name']} ({k['task']}, batch {k['batch']}): kernel "
               f"{k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
               f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound "
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}) [{smi}]", flush=True)
@@ -376,7 +765,8 @@ if __name__ == "__main__":
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "report.json").write_text(json.dumps(rep, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in rep["kernels"]]}))
     print(rep["nvidia_smi"])

@@ -1,11 +1,13 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
-``csrc/lut_kernels.cu`` has a plain C interface, so it compiles in seconds
-with ``nvcc`` straight into a shared library (no PyTorch headers) and loads
-with ``ctypes``.  The library is built at first use into ``build/repro_torch``
-at the repository root, named by a hash of the source and flags, so an
-edited source is rebuilt and an unchanged one is reused.  A build failure
-raises; nothing falls back to the plain versions.
+Each source under ``csrc/`` (``lut_kernels.cu``: K1-K3, ``subnet_mlp.cu``:
+K4) has a plain C interface, so it compiles in seconds with ``nvcc`` straight
+into its own shared library (no PyTorch headers) and loads with ``ctypes``.
+The libraries are built at first use into ``build/repro_torch`` at the
+repository root, each named by a hash of its source and the flags, so an
+edited source is rebuilt and an unchanged one is reused.  Missing libraries
+are compiled together, one ``nvcc`` per source started at once.  A build
+failure raises; nothing falls back to the plain versions.
 
 Each kernel wrapper owns a :class:`LaunchCounter`, incremented where (and
 only where) it launches its kernel, so a run can show which kernels the
@@ -24,7 +26,8 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "lut_kernels.cu"
+SOURCES = {"lut_kernels": CSRC / "lut_kernels.cu",
+           "subnet_mlp": CSRC / "subnet_mlp.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -78,48 +81,71 @@ def nvcc() -> str:
                        "on a machine with the CUDA toolkit")
 
 
-def build() -> Tuple[Path, float, str]:
-    """Compile the kernels if needed; returns (library path, build seconds
-    (0.0 when reused), the compiler's register/shared-memory report)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"liblut_kernels_{digest}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return lib, 0.0, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build() -> Dict[str, Tuple[Path, float, str]]:
+    """Compile every source whose library is missing, all at once; returns
+    ``{name: (library path, build seconds (0.0 when reused), the compiler's
+    register/shared-memory report)}``."""
+    out: Dict[str, Tuple[Path, float, str]] = {}
+    procs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    log.write_text(proc.stderr)
-    os.replace(tmp, lib)
-    return lib, seconds, proc.stderr
+    for name, src in SOURCES.items():
+        lib = _lib_path(name)
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            out[name] = (lib, 0.0, log.read_text() if log.exists() else "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        procs[name] = (lib, tmp, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for name, (lib, tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}) on "
+                          f"{SOURCES[name]}:\n{stdout}\n{stderr}")
+            continue
+        lib.with_suffix(".log").write_text(stderr)
+        os.replace(tmp, lib)
+        out[name] = (lib, seconds, stderr)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "lut_lookup_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "lut_cascade_resident_launch": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _L, _L, _I, _P, _P),
-    "lut_cascade_streamed_launch": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _P, _P),
+    "lut_kernels": {
+        "lut_lookup_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "lut_cascade_resident_launch": (_P, _P, _I, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _L, _L, _I, _P, _P),
+        "lut_cascade_streamed_launch": (_P, _P, _I, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _I, _P, _P),
+    },
+    "subnet_mlp": {
+        "unit_affine_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                               _L, _L, _L, _I, _I, _P),
+    },
 }
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    path, _, _ = build()
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name``, built on first call."""
+    path, _, _ = build()[name]
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fname, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fname)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib

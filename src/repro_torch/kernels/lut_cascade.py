@@ -266,7 +266,7 @@ def lut_cascade_resident(codes: torch.Tensor,
                       device=codes.device)
     if b == 0:
         return out
-    lib = build.library()
+    lib = build.library("lut_kernels")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.lut_cascade_resident_launch(
@@ -293,7 +293,7 @@ def lut_cascade_streamed(codes: torch.Tensor, ops: CascadeOperands, *,
                       device=codes.device)
     if b == 0:
         return out
-    lib = build.library()
+    lib = build.library("lut_kernels")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.lut_cascade_streamed_launch(

@@ -58,7 +58,7 @@ def lut_lookup_cuda(table: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
     if b == 0 or u == 0:
         return out
     unit_tile, block_b, staged = tile_shape(t)
-    lib = build.library()
+    lib = build.library("lut_kernels")
     with torch.cuda.device(addr.device):
         stream = torch.cuda.current_stream(addr.device).cuda_stream
         err = lib.lut_lookup_launch(table.data_ptr(), addr.data_ptr(),

@@ -12,6 +12,9 @@ that fails to build or launch raises.
   K1 or K2 by the plan's tuning and the shared-memory fit, or the plain
   cascade where the plan pins ``impl="xla"`` (as in the reference, where
   ``"xla"`` is not a kernel).
+* :func:`unit_affine` -- one affine stage of the per-unit MLPs: K4 on CUDA
+  tensors, the plain einsum on CPU tensors (``impl=None``); ``"einsum"``
+  pins the plain version, ``"pallas"`` pins K4.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import autotune, lut_cascade as _lc, lut_gather, ref
+from repro_torch.kernels import subnet_mlp
 
 
 def lut_lookup(table: torch.Tensor, addr: torch.Tensor, *,
@@ -69,3 +73,22 @@ def lut_cascade(codes: torch.Tensor, amat, tables: torch.Tensor, *,
     if mode == "resident":
         return _lc.lut_cascade_resident(codes, operands)
     return _lc.lut_cascade_streamed(codes, operands, unit_tile=t.unit_tile)
+
+
+def unit_affine(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None, *, activate: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """x ``[B, U, din]``, w ``[U, din, dout]``, b ``[U, dout]`` ->
+    ``[B, U, dout]``.  ``impl=None`` dispatches by device (K4 on CUDA, plain
+    on the CPU); ``"einsum"`` always runs the plain version; ``"pallas"``
+    is K4 and raises on the CPU."""
+    if impl is None:
+        return subnet_mlp.unit_affine(x, w, b, activate=activate)
+    if impl == "einsum":
+        return ref.unit_affine_ref(x, w, b, activate=activate)
+    if impl == "pallas":
+        if x.device.type != "cuda":
+            raise ValueError("unit_affine impl='pallas' is the CUDA kernel "
+                             "and needs CUDA tensors")
+        return subnet_mlp.UnitAffine.apply(x, w, b, activate)
+    raise ValueError(f"unknown unit_affine impl {impl!r}")

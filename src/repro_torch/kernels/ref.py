@@ -1,5 +1,7 @@
-"""Plain PyTorch oracles for the per-layer lookup (``repro.kernels.ref``)."""
+"""Plain PyTorch oracles for the kernels (``repro.kernels.ref``)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -19,3 +21,14 @@ def lut_lookup_onehot_ref(table: torch.Tensor,
                                          entries).to(torch.float32)
     out = torch.einsum("but,ut->bu", onehot, table.to(torch.float32))
     return torch.round(out).to(table.dtype)
+
+
+def unit_affine_ref(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                    *, activate: bool = False) -> torch.Tensor:
+    """One affine stage of the per-unit MLPs: x ``[batch, units, din]``, w
+    ``[units, din, dout]``, b ``[units, dout]`` (or None) -> ``[batch,
+    units, dout]``, ReLU'd when ``activate``."""
+    y = torch.einsum("bui,uio->buo", x, w)
+    if b is not None:
+        y = y + b
+    return torch.relu(y) if activate else y

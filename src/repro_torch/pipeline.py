@@ -1,4 +1,16 @@
-"""The deployment artifact (the serving half of ``repro.pipeline``).
+"""The toolflow and the deployment artifact (``repro.pipeline``).
+
+``Toolflow`` drives the paper's flow on one device (CUDA unless the caller
+passes ``device="cpu"``): dense pre-training with the group lasso, pruning
+to learned mappings, sparse re-training and exhaustive folding into a
+:class:`CompiledLUTNetwork`::
+
+    compiled = Toolflow(cfg).run(data)
+
+``save_state``/``load_state`` write and read the reference's state file
+(``dense_<i>``/``sparse_<i>`` leaves in the reference's leaf order,
+``mapping_<l>``, ``manifest_json``), so each package resumes the other's
+flows.
 
 ``CompiledLUTNetwork`` owns everything inference needs (tables, mappings,
 the two boundary quantizers, the config) and lives on one device, CUDA
@@ -12,8 +24,10 @@ artifacts, persisted fused plans included.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -21,9 +35,10 @@ import torch
 
 from repro_torch import backends
 from repro_torch import device as _device
-from repro_torch.core import quant
-from repro_torch.core.assemble import AssembleConfig, LayerSpec
+from repro_torch.core import assemble, folding, pruning, quant
+from repro_torch.core.assemble import AssembleConfig, LayerSpec, LUTNet
 from repro_torch.core.folding import FoldedNetwork
+from repro_torch.train import lut_trainer
 
 ARTIFACT_VERSION = 1
 
@@ -42,6 +57,29 @@ def config_from_dict(d: dict) -> AssembleConfig:
     d = dict(d)
     d["layers"] = tuple(LayerSpec(**l) for l in d["layers"])
     return AssembleConfig(**d)
+
+
+def _tree_to_arrays(prefix: str, net: LUTNet) -> Dict[str, np.ndarray]:
+    """``{prefix<i>: leaf}`` in the reference's leaf order."""
+    return {f"{prefix}{i}": leaf for i, leaf in enumerate(
+        assemble.tree_leaves(assemble.params_to_reference(net)))}
+
+
+def _tree_from_arrays(prefix: str, like: LUTNet, data, *,
+                      device=None) -> LUTNet:
+    """A network shaped like ``like`` whose leaves are ``data[prefix<i>]``
+    in the reference's leaf order."""
+    it = itertools.count()
+
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: fill(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, list):
+            return [fill(t) for t in tree]
+        return np.asarray(data[f"{prefix}{next(it)}"])
+
+    return assemble.params_from_reference(
+        fill(assemble.params_to_reference(like)), device=device)
 
 
 def _save_npz(path: str, arrays: Dict[str, np.ndarray], meta_key: str,
@@ -273,3 +311,192 @@ class CompiledLUTNetwork:
                 net._plans[name] = backends.ExecutionPlan(
                     backend=name, meta=pmeta, buffers=bufs)
         return net
+
+
+def compile_network(params: LUTNet, cfg: AssembleConfig, *,
+                    backend: Optional[str] = None) -> CompiledLUTNetwork:
+    """Fold trained ``params`` (on their own device) into a deployment
+    artifact on that device."""
+    return CompiledLUTNetwork.from_folded(folding.fold_network(params, cfg),
+                                          backend=backend)
+
+
+@dataclasses.dataclass
+class StageResult:
+    """What one toolflow stage did: its name, wall seconds and metrics."""
+
+    name: str
+    seconds: float
+    metrics: Dict[str, Any]
+
+
+class Toolflow:
+    """The paper's three training phases plus compilation, in order.
+
+    Stages run in order (``pretrain`` -> ``prune`` -> ``retrain`` ->
+    ``compile``), each returning ``self`` (``compile`` returns the
+    artifact).  ``retrain`` without ``prune`` uses random mappings.
+    ``stages`` records what ran.  Every stage runs on ``device`` (CUDA by
+    default).  Stream cells (slice 3) and ``search`` (slice 4) are not
+    ported yet and raise ``NotImplementedError``.
+    """
+
+    def __init__(self, cfg, *, pretrain_steps: int = 120,
+                 retrain_steps: int = 250, lr: float = 5e-3,
+                 pretrain_lr: Optional[float] = None,
+                 batch_size: int = 256, lasso: float = 1e-4,
+                 weight_decay: float = 1e-4, sgdr_t0: int = 100,
+                 seed: int = 0, max_train: int = 4096, device=None):
+        """Hold the config and hyperparameters; nothing runs yet."""
+        if hasattr(cfg, "net") and hasattr(cfg, "n_state"):
+            raise NotImplementedError(
+                "stream cells belong to slice 3 of the port (ROADMAP A.10)")
+        self.cfg = cfg
+        self.device = _device.resolve(device)
+        self.hyper = dict(pretrain_steps=pretrain_steps,
+                          retrain_steps=retrain_steps, lr=lr,
+                          pretrain_lr=pretrain_lr, batch_size=batch_size,
+                          lasso=lasso, weight_decay=weight_decay,
+                          sgdr_t0=sgdr_t0, seed=seed, max_train=max_train)
+        self.data = None
+        self.dense_params: Optional[LUTNet] = None
+        self.mappings: Optional[List[Optional[torch.Tensor]]] = None
+        self.params: Optional[LUTNet] = None          # sparse (deployable)
+        self.compiled: Optional[CompiledLUTNetwork] = None
+        self.stages: Dict[str, StageResult] = {}
+
+    def _record(self, name: str, t0: float, **metrics) -> None:
+        self.stages[name] = StageResult(name=name,
+                                        seconds=time.time() - t0,
+                                        metrics=metrics)
+
+    def _require(self, attr: str, stage: str, needed_by: str) -> Any:
+        val = getattr(self, attr)
+        if val is None:
+            raise RuntimeError(
+                f"Toolflow.{needed_by}() needs {attr!r}: run .{stage}() "
+                "first (or load_state a saved flow)")
+        return val
+
+    def pretrain(self, data) -> "Toolflow":
+        """Phase 1: dense pre-training with the group-lasso regularizer
+        (mapping layers read the whole previous layer)."""
+        h = self.hyper
+        t0 = time.time()
+        res = lut_trainer.train(
+            self.cfg, data, dense=True, lasso=h["lasso"],
+            steps=h["pretrain_steps"],
+            lr=h["pretrain_lr"] if h["pretrain_lr"] is not None else h["lr"],
+            batch_size=h["batch_size"], weight_decay=h["weight_decay"],
+            seed=h["seed"], max_train=h["max_train"], device=self.device)
+        self.data = data
+        self.dense_params = res.params
+        self._record("pretrain", t0, final_loss=res.losses[-1],
+                     steps=h["pretrain_steps"])
+        return self
+
+    def prune(self) -> "Toolflow":
+        """Phase 2: keep the top-F inputs per unit by group norm; these are
+        the learned mappings."""
+        dense = self._require("dense_params", "pretrain", "prune")
+        t0 = time.time()
+        self.mappings = pruning.select_mappings(dense, self.cfg)
+        self._record("prune", t0, coverage=pruning.mapping_coverage(
+            self.mappings, self.cfg))
+        return self
+
+    def retrain(self, data=None) -> "Toolflow":
+        """Phase 3: sparse re-training from scratch with the learned
+        mappings (random mappings if ``prune`` was skipped)."""
+        data = data if data is not None else self._require(
+            "data", "pretrain", "retrain")
+        h = self.hyper
+        t0 = time.time()
+        res = lut_trainer.train(
+            self.cfg, data, mappings=self.mappings,
+            steps=h["retrain_steps"], lr=h["lr"],
+            batch_size=h["batch_size"], weight_decay=h["weight_decay"],
+            sgdr_t0=h["sgdr_t0"], seed=h["seed"], max_train=h["max_train"],
+            device=self.device)
+        self.data = data
+        self.params = res.params
+        self._record("retrain", t0, final_loss=res.losses[-1],
+                     steps=h["retrain_steps"],
+                     learned_mappings=self.mappings is not None)
+        return self
+
+    def compile(self, *, backend: Optional[str] = None) -> CompiledLUTNetwork:
+        """Phase 4: exhaustive fold into the deployment artifact."""
+        params = self._require("params", "retrain", "compile")
+        t0 = time.time()
+        self.compiled = compile_network(params, self.cfg, backend=backend)
+        self._record("compile", t0, entries=self.compiled.num_entries())
+        return self.compiled
+
+    def run(self, data) -> CompiledLUTNetwork:
+        """All four phases end to end."""
+        return self.pretrain(data).prune().retrain().compile()
+
+    @classmethod
+    def search(cls, task: str, budget=None, *, data=None, mesh=None):
+        """The assembly search belongs to slice 4 of the port."""
+        raise NotImplementedError(
+            "Toolflow.search belongs to slice 4 of the port (ROADMAP A.13)")
+
+    def accuracy(self, data=None, *, folded: bool = False,
+                 max_eval: int = 2048) -> float:
+        """Test accuracy of the sparse model (or its folded tables)."""
+        data = data if data is not None else self._require(
+            "data", "pretrain", "accuracy")
+        params = self._require("params", "retrain", "accuracy")
+        return lut_trainer.accuracy(self.cfg, params, data, folded=folded,
+                                    max_eval=max_eval)
+
+    def save_state(self, path: str) -> str:
+        """Persist the finished stages' outputs to one ``.npz`` in the
+        reference's layout; ``data`` is not saved."""
+        arrays: Dict[str, np.ndarray] = {}
+        done = []
+        if self.dense_params is not None:
+            arrays.update(_tree_to_arrays("dense_", self.dense_params))
+            done.append("pretrain")
+        if self.mappings is not None:
+            for l, m in enumerate(self.mappings):
+                if m is not None:
+                    arrays[f"mapping_{l}"] = m.cpu().numpy()
+            done.append("prune")
+        if self.params is not None:
+            arrays.update(_tree_to_arrays("sparse_", self.params))
+            done.append("retrain")
+        manifest = {"config": config_to_dict(self.cfg), "hyper": self.hyper,
+                    "done": done, "stream": None}
+        return _save_npz(path, arrays, "manifest_json", manifest)
+
+    @classmethod
+    def load_state(cls, path: str, *, device=None) -> "Toolflow":
+        """Resume a flow saved by either package onto ``device`` (CUDA by
+        default)."""
+        data, manifest = _open_npz(path, "manifest_json")
+        with data:
+            if manifest.get("stream"):
+                raise NotImplementedError(
+                    "stream flows belong to slice 3 of the port")
+            cfg = config_from_dict(manifest["config"])
+            flow = cls(cfg, device=device, **manifest["hyper"])
+            seed = flow.hyper["seed"]
+            if "prune" in manifest["done"]:
+                flow.mappings = [
+                    None if spec.assemble else torch.from_numpy(
+                        np.array(data[f"mapping_{l}"], np.int32)
+                    ).to(flow.device)
+                    for l, spec in enumerate(cfg.layers)]
+            if "pretrain" in manifest["done"]:
+                like = assemble.init(seed, cfg, dense=True, device="cpu")
+                flow.dense_params = _tree_from_arrays(
+                    "dense_", like, data, device=flow.device)
+            if "retrain" in manifest["done"]:
+                like = assemble.init(seed, cfg, mappings=flow.mappings,
+                                     device="cpu")
+                flow.params = _tree_from_arrays("sparse_", like, data,
+                                                device=flow.device)
+        return flow

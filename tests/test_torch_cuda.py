@@ -8,7 +8,7 @@ import torch
 
 from repro_torch import pipeline
 from repro_torch.configs import paper_tasks
-from repro_torch.kernels import build, lut_cascade, lut_gather
+from repro_torch.kernels import build, lut_cascade, lut_gather, subnet_mlp
 from repro_torch.serve.lut_engine import LUTEngine
 
 
@@ -101,3 +101,66 @@ def test_engine_on_card_matches_cpu_engine(cuda):
                                                     device=cuda),
                         block=64, depth=2, backend=backend).run(x)
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("b,u,din,dout,stride0,act", [
+    (1, 7, 6, 64, False, True), (33, 60, 784, 64, True, False),
+    (257, 21, 64, 1, False, False), (130, 9, 64, 784, False, False),
+    (64, 100, 12, 16, False, True), (5, 3, 40, 50, True, True)])
+def test_unit_affine_kernel_matches_plain_and_counts(b, u, din, dout, stride0,
+                                                     act, cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(b + din)
+    x = torch.rand((b, din) if stride0 else (b, u, din), generator=gen)
+    w = torch.randn((u, din, dout), generator=gen) * (2.0 / din) ** 0.5
+    bias = torch.randn((u, dout), generator=gen) * 0.1
+    x, w, bias = x.to(cuda), w.to(cuda), bias.to(cuda)
+    if stride0:
+        x = x[:, None, :].expand(b, u, din)
+    build.reset_counters()
+    got = subnet_mlp.unit_affine_cuda(x, w, bias, activate=act)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["unit_affine"] == 1
+    tol = 1e-5 * max(1.0, (din / 64) ** 0.5)
+    torch.testing.assert_close(
+        got, subnet_mlp.unit_affine_plain(x, w, bias, activate=act),
+        rtol=tol, atol=tol)
+    # the fixed reduction order: the first rows alone give the same bits
+    part = subnet_mlp.unit_affine_cuda(x[:1].contiguous(), w, bias,
+                                       activate=act)
+    assert torch.equal(part, got[:1])
+    wt = w.transpose(1, 2).contiguous().transpose(1, 2)   # strided view
+    torch.testing.assert_close(subnet_mlp.unit_affine_cuda(x, wt, None),
+                               subnet_mlp.unit_affine_plain(x, w, None),
+                               rtol=tol, atol=tol)
+
+
+def test_unit_affine_bf16_and_gradient(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand((70, 11, 6), generator=gen).to(cuda)
+    w = (torch.randn((11, 6, 64), generator=gen) * 0.5).to(cuda)
+    bias = (torch.randn((11, 64), generator=gen) * 0.1).to(cuda)
+    got = subnet_mlp.unit_affine_cuda(x.bfloat16(), w.bfloat16(),
+                                      bias.bfloat16(), activate=True)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), subnet_mlp.unit_affine_plain(
+            x.bfloat16(), w.bfloat16(), bias.bfloat16(),
+            activate=True).float(), rtol=3e-2, atol=3e-2)
+    x0 = torch.rand((40, 300), generator=gen).to(cuda).requires_grad_()
+    w = (torch.randn((9, 300, 64), generator=gen) * 0.08).to(cuda)
+    w.requires_grad_()
+    bias.requires_grad_()
+    cot = torch.randn((40, 9, 64), generator=gen).to(cuda)
+    grads = []
+    for fn in (subnet_mlp.unit_affine, subnet_mlp.unit_affine_plain):
+        for t in (x0, w):
+            t.grad = None
+        b9 = bias[:9]
+        y = fn(x0[:, None, :].expand(40, 9, 300), w, b9, activate=True)
+        (y * cot).sum().backward()
+        grads.append([x0.grad.clone(), w.grad.clone()])
+    for g, p in zip(*grads):
+        torch.testing.assert_close(g, p, rtol=1e-4,
+                                   atol=1e-5 * float(p.abs().max()))
