@@ -15,7 +15,12 @@ shapes, and drives both main paths:
 * the toolflow (slice 2): full-width ``mnist`` pre-trained dense, pruned,
   re-trained and folded through the per-unit affine kernel K4, then saved,
   reloaded and served; one training step on the card against the CPU;
-  ``nid_reduced`` trained to the reference test's accuracy gate.
+  ``nid_reduced`` trained to the reference test's accuracy gate;
+* LM serving (slice 3): full-width ``gemma-2b`` (random bf16 weights from
+  ``torch.Generator("cuda").manual_seed(seed)``) serving six requests on
+  four slots through ``ServeEngine``, every layer's prefill attention
+  through the flash kernel K5; decode against prefill on the card, and a
+  2-layer f32 cut of it on the card against the CPU.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
@@ -41,17 +46,20 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor f32 rate, used for int32
 F32_FLOPS_PER_S = 67e12       # H100 SXM non-tensor f32 FMA rate (K4's unit)
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 SOURCES = {
     "lut_cascade_resident": "src/repro_torch/kernels/csrc/lut_kernels.cu",
     "lut_cascade_streamed": "src/repro_torch/kernels/csrc/lut_kernels.cu",
     "lut_lookup": "src/repro_torch/kernels/csrc/lut_kernels.cu",
     "unit_affine": "src/repro_torch/kernels/csrc/subnet_mlp.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 REPLACES = {
     "lut_cascade_resident": "src/repro/kernels/lut_cascade.py:136",
     "lut_cascade_streamed": "src/repro/kernels/lut_cascade.py:193",
     "lut_lookup": "src/repro/kernels/lut_gather.py:40",
     "unit_affine": "src/repro/kernels/subnet_mlp.py:23",
+    "flash_attention": "src/repro/kernels/flash_attention.py:29",
 }
 # K4 against its plain version: (batch, units, din, dout, stride-0 unit
 # axis, activate) -- dense layer 0 of mnist, a hidden stage, the last
@@ -282,6 +290,266 @@ def check_unit_affine(dev) -> float:
           f"across batch sizes ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     return worst
+
+
+# K5 against its plain version: tests/test_kernels.py's 15 cases at D 32,
+# (hq, hkv, sq, skv, causal, window)
+K5_CASES = tuple((hq, hkv, sq, skv, causal, window)
+                 for hq, hkv in ((4, 4), (4, 2), (8, 1))
+                 for sq, skv, causal, window in ((64, 64, True, None),
+                                                 (64, 64, False, None),
+                                                 (100, 100, True, 32),
+                                                 (1, 96, True, None),
+                                                 (1, 96, True, 24)))
+K5_F32_TOL = 2e-5             # the reference test's rtol = atol
+K5_BF16_RTOL = 2 ** -7        # one bf16 ulp: both sides compute in f32 from
+K5_BF16_ATOL = 1e-5           # the same bf16 values and round once
+GEMMA_PROMPTS = (1024, 700, 512, 130, 33, 7)
+GEMMA_NEW_TOKENS = 16
+# decode vs prefill in bf16 through 18 layers: prefill's [S, d] GEMMs and
+# decode's [1, d] GEMMs accumulate in other orders, so the bf16 residual
+# stream differs by ulps that grow with depth; a sanity bound of 5% of the
+# largest logit, with the argmax held equal.  The exact check is the f32
+# one on the 2-layer cut, at the reference's tolerance
+DECODE_VS_PREFILL_REL = 0.05
+DECODE_VS_PREFILL_F32_TOL = 2e-4   # tests/test_archs.py:123, rtol = atol
+CARD_VS_CPU_TOL = 1e-4        # f32, summation order only
+
+
+def k5_inputs(b, hq, hkv, sq, skv, d, seed, dev, dtype=None):
+    """q, k, v with standard normal entries (numpy seed), on the card."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rs.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype or torch.float32)
+        for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+
+
+def check_flash_attention(dev) -> float:
+    """K5 against its plain version: the reference test's 15 cases (f32,
+    D 32), gemma-2b's prefill shapes ([1, 8, S, 256] q on [1, 1, S, 256]
+    k/v, causal, S in 1024 / 130 / 7) in f32 and bf16, a window of 256 at
+    S 1024, and q as the strided view the model passes.  Returns the max
+    |diff| of the f32 checks; fails on any disagreement."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    worst, worst_bf16, n = 0.0, 0.0, 0
+
+    def hold(q, k, v, label, **kw):
+        nonlocal worst, worst_bf16, n
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        n += 1
+        if q.dtype == torch.float32:
+            worst = max(worst, err)
+            ok = torch.allclose(got, want, rtol=K5_F32_TOL, atol=K5_F32_TOL)
+        else:
+            worst_bf16 = max(worst_bf16, err)
+            ok = torch.allclose(got.float(), want.float(), rtol=K5_BF16_RTOL,
+                                atol=K5_BF16_ATOL)
+        if not ok:
+            fail(f"K5 {label} {q.dtype}: max |diff| {err}")
+
+    for hq, hkv, sq, skv, causal, window in K5_CASES:
+        hold(*k5_inputs(2, hq, hkv, sq, skv, 32, hq + sq, dev),
+             f"[{hq},{hkv},{sq},{skv},{causal},{window}]", causal=causal,
+             window=window, q_offset=skv - sq)
+    for s in (1024, 130, 7):
+        q, k, v = k5_inputs(1, 8, 1, s, s, 256, s, dev)
+        hold(q, k, v, f"gemma S {s}")
+        hold(*(t.bfloat16() for t in (q, k, v)), f"gemma S {s}")
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+        hold(qt, k, v, f"gemma S {s} strided q")
+    hold(*k5_inputs(1, 8, 1, 1024, 1024, 256, 3, dev), "window 256",
+         window=256)
+    print(f"K5 vs plain: {n} checks, f32 max |diff| {worst:.3e} (tolerance "
+          f"{K5_F32_TOL}), bf16 max |diff| {worst_bf16:.3e} (rtol "
+          f"{K5_BF16_RTOL}, atol {K5_BF16_ATOL}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
+def serve_gemma(dev, smi: str, seed: int) -> dict:
+    """The LM serving path at full width: ``gemma-2b`` (18 layers, bf16,
+    random weights) serves six requests on four slots through
+    ``ServeEngine`` with the launch counts set to 0 just before; fails
+    unless K5 launched exactly once per layer per prefill (108), every
+    request got its 16 tokens in range, every logit was finite, decode
+    matches prefill on the card (in bf16 within a sanity bound with the
+    same argmax, and in f32 on a 2-layer cut at the reference's 2e-4), and
+    that 2-layer cut agrees with the CPU.  Returns the serving numbers."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = lm_archs.get("gemma-2b")
+    out = {"arch": cfg.name, "slots": 4, "context": 2048,
+           "prompts": list(GEMMA_PROMPTS), "new_tokens": GEMMA_NEW_TOKENS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    eng = ServeEngine(cfg, model, slots=4, context=2048, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    del model
+    params = eng.params                      # the bf16 copy, made once
+    # warm-up (cuBLAS handles, the kernel library), not counted
+    ServeEngine(cfg, params, slots=4, context=2048, device=dev).run(
+        [Request(rid=-1, prompt=np.arange(40, dtype=np.int32), max_tokens=3)])
+
+    rs = np.random.RandomState(seed)
+    reqs = [Request(rid=i, prompt=rs.randint(0, cfg.vocab, n).astype(np.int32),
+                    max_tokens=GEMMA_NEW_TOKENS)
+            for i, n in enumerate(GEMMA_PROMPTS)]
+    reqs[2] = dataclasses.replace(reqs[2], temperature=0.8, top_k=50,
+                                  top_p=0.9)
+    eng = ServeEngine(cfg, params, slots=4, context=2048, device=dev,
+                      rng_seed=seed)
+    finite = []
+    sample = eng._sample
+
+    def checked_sample(logits, req):
+        finite.append(bool(np.isfinite(logits).all()))
+        return sample(logits, req)
+
+    eng._sample = checked_sample
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    out["launches"] = counts
+    out["k5_launches"] = counts.get("flash_attention", 0)
+    want = cfg.n_layers * len(GEMMA_PROMPTS)
+    if out["k5_launches"] != want:
+        fail(f"gemma-2b serve: K5 launched {out['k5_launches']} times, not "
+             f"{want} (one per layer per prefill, none in decode)")
+    if len(done) != len(reqs) or any(
+            len(r.out_tokens) != GEMMA_NEW_TOKENS
+            or not all(0 <= t < cfg.vocab for t in r.out_tokens)
+            for r in done):
+        fail("gemma-2b serve: a request did not finish with "
+             f"{GEMMA_NEW_TOKENS} tokens in range")
+    if not all(finite) or len(finite) != eng.stats.tokens_out + len(reqs):
+        fail("gemma-2b serve: non-finite logits")
+    st = eng.stats
+    out.update(
+        wall_s=wall, peak_bytes=torch.cuda.max_memory_allocated(),
+        prefill_ms={n: ms for n, ms in zip(GEMMA_PROMPTS, st.prefill_ms)},
+        decode_ticks=st.decode_steps, decode_tokens=st.tokens_out,
+        decode_ms_median=statistics.median(st.decode_ms),
+        decode_ms_total=sum(st.decode_ms),
+        decode_tokens_per_s=st.tokens_out / (sum(st.decode_ms) / 1e3),
+        tokens_per_s=(st.tokens_out + len(reqs)) / wall,
+        tokens={r.rid: r.out_tokens for r in done})
+    print(f"gemma-2b serve: 6 requests on 4 slots in {wall:.3f} s, K5 "
+          f"launches {out['k5_launches']}, prefill ms by prompt length "
+          f"{ {n: round(ms, 2) for n, ms in out['prefill_ms'].items()} }, "
+          f"{st.decode_steps} decode ticks, median "
+          f"{out['decode_ms_median']:.2f} ms/tick, "
+          f"{out['decode_tokens_per_s']:.1f} decode tokens/s, "
+          f"{out['tokens_per_s']:.1f} tokens/s overall, peak memory "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB [{smi}]", flush=True)
+
+    # the device's idle share of one prefill of 1024 and one decode tick
+    toks = torch.from_numpy(reqs[0].prompt[None]).to(dev)
+    wall_p, prof = profile(lambda: lm.prefill(params, cfg, toks, 2048),
+                           calls=1)
+    busy = sum(sec for _, sec in prof.values())
+    k5 = sum(sec for key, (_, sec) in prof.items()
+             if "flash_attention_kernel" in key)
+    out["prefill_profile"] = {"wall_s": wall_p, "device_busy_s": busy,
+                              "k5_device_s": k5,
+                              "device_idle_share": 1.0 - busy / wall_p,
+                              "k5_share_of_busy": k5 / busy}
+    cache = eng.cache
+    tok4 = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    wall_d, prof = profile(lambda: lm.decode_step(params, cfg, cache, tok4),
+                           calls=1)
+    busy_d = sum(sec for _, sec in prof.values())
+    out["decode_profile"] = {"wall_s": wall_d, "device_busy_s": busy_d,
+                             "device_idle_share": 1.0 - busy_d / wall_d}
+    print(f"profile gemma-2b prefill 1024: wall {wall_p * 1e3:.2f} ms, "
+          f"device busy {busy * 1e3:.2f} ms, K5 {k5 * 1e3:.2f} ms "
+          f"({k5 / busy:.3f} of busy), idle share {1.0 - busy / wall_p:.3f}; "
+          f"decode tick (4 slots): wall {wall_d * 1e3:.2f} ms, device busy "
+          f"{busy_d * 1e3:.2f} ms, idle share {1.0 - busy_d / wall_d:.3f} "
+          f"[{smi}]", flush=True)
+
+    # decode vs prefill on the card in bf16 (tests/test_archs.py:109 at
+    # full depth), n = 129: a sanity bound and the argmax
+    p = torch.from_numpy(reqs[0].prompt[None, :130]).to(dev)
+    full, _ = lm.prefill(params, cfg, p, 2048)
+    _, c = lm.prefill(params, cfg, p[:, :129], 2048)
+    dec, _ = lm.decode_step(params, cfg, c, p[:, 129:130])
+    full, dec = full[:, :cfg.vocab], dec[:, :cfg.vocab]
+    err = float((dec - full).abs().max())
+    scale = float(full.abs().max())
+    out["decode_vs_prefill"] = {"max_abs_diff": err, "max_abs_logit": scale,
+                                "argmax_equal": bool(
+                                    torch.equal(dec.argmax(-1),
+                                                full.argmax(-1)))}
+    print(f"gemma-2b decode vs prefill (bf16, n = 129): max |diff| {err:.4f} "
+          f"of max |logit| {scale:.4f} (limit {DECODE_VS_PREFILL_REL} of "
+          f"it), argmax equal {out['decode_vs_prefill']['argmax_equal']}",
+          flush=True)
+    if not err <= DECODE_VS_PREFILL_REL * scale:
+        fail(f"gemma-2b decode vs prefill: max |diff| {err} > "
+             f"{DECODE_VS_PREFILL_REL} x {scale}")
+    if not out["decode_vs_prefill"]["argmax_equal"]:
+        fail("gemma-2b decode vs prefill: the argmax differs")
+    del eng, params, cache, c, full, dec
+    torch.cuda.empty_cache()
+
+    # card vs CPU: full width cut to 2 layers, f32, prompt 130
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    card = lm.init_params(cfg2, torch.Generator(dev).manual_seed(seed), dev)
+    cpu = lm.compute_copy(card, cfg2, "cpu")
+    prompt = torch.from_numpy(reqs[0].prompt[None, :130])
+    build.reset_counters()
+    got, _ = lm.prefill(card, cfg2, prompt.to(dev), 2048)
+    if build.launch_counts().get("flash_attention", 0) != 2:
+        fail("gemma-2b card vs CPU: K5 did not run once per layer")
+    # decode matches prefill on the card in f32, n = 129
+    _, c = lm.prefill(card, cfg2, prompt[:, :129].to(dev), 2048)
+    dec, _ = lm.decode_step(card, cfg2, c, prompt[:, 129:130].to(dev))
+    full, dec = got[:, :cfg.vocab], dec[:, :cfg.vocab]
+    err = float((dec - full).abs().max())
+    out["decode_vs_prefill_f32"] = {"layers": 2, "max_abs_diff": err,
+                                    "max_abs_logit": float(full.abs().max())}
+    print(f"gemma-2b (2 layers, f32) decode vs prefill on the card (n = "
+          f"129): max |diff| {err:.3e} (tolerance rtol = atol = "
+          f"{DECODE_VS_PREFILL_F32_TOL})", flush=True)
+    if not torch.allclose(dec, full, rtol=DECODE_VS_PREFILL_F32_TOL,
+                          atol=DECODE_VS_PREFILL_F32_TOL):
+        fail(f"gemma-2b (2 layers, f32) decode vs prefill: max |diff| {err}")
+    del c, full, dec
+    want, _ = lm.prefill(cpu, cfg2, prompt, 2048)
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    out["card_vs_cpu_max_abs_diff"] = err
+    print(f"gemma-2b (2 layers, f32) card vs CPU prefill logits: max |diff| "
+          f"{err:.3e} (tolerance rtol = atol = {CARD_VS_CPU_TOL})",
+          flush=True)
+    if not torch.allclose(got, want, rtol=CARD_VS_CPU_TOL,
+                          atol=CARD_VS_CPU_TOL):
+        fail(f"gemma-2b card vs CPU: max |diff| {err}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
 
 
 def finite_net(net) -> bool:
@@ -522,8 +790,8 @@ def main(seed: int) -> dict:
     try:
         from repro_torch import pipeline
         from repro_torch.configs import paper_tasks
-        from repro_torch.kernels import (build, lut_cascade, lut_gather,
-                                         subnet_mlp)
+        from repro_torch.kernels import (build, flash_attention, lut_cascade,
+                                         lut_gather, subnet_mlp)
         from repro_torch.serve.lut_engine import LUTEngine
     except ImportError as e:
         fail(f"the port's package is not importable next to this script: {e}")
@@ -602,6 +870,7 @@ def main(seed: int) -> dict:
     if any(errs.values()):
         fail(f"a kernel disagrees with its plain version: {errs}")
     errs["unit_affine"] = check_unit_affine(dev)
+    errs["flash_attention"] = check_flash_attention(dev)
 
     # -- phase 4: serve from a reloaded artifact through LUTEngine ----------
     art_dir = ROOT / "build" / "chip_smoke"
@@ -624,6 +893,9 @@ def main(seed: int) -> dict:
     report["toolflow_mnist"] = train_mnist(dev, smi, art_dir)
     report["step_card_vs_cpu"] = step_card_vs_cpu(dev)
     report["nid_reduced"] = train_nid(dev, smi)
+
+    # -- phase 7: LM serving (slice 3) ---------------------------------------
+    report["serve_gemma"] = serve_gemma(dev, smi, seed)
 
     # -- phase 5: kernel times at the main path's shapes (block 1024) -------
     # Each kernel's "ms" is one main-path block of 1024 rows: one launch of
@@ -699,6 +971,27 @@ def main(seed: int) -> dict:
         "bytes": (kb * kdin + ku * kdin * kdout + ku * kdout
                   + kb * ku * kdout) * 4,
         "ops": 2 * kb * ku * kdin * kdout, "ops_per_s": F32_FLOPS_PER_S})
+    # K5 on one layer of gemma-2b's 1024-token prefill, bf16, causal; the
+    # yardstick is one scaled_dot_product_attention call (timed here only,
+    # no module of the port calls it).  Bytes: q, k, v read once, o written
+    # once; operations: 4 * Hq * D per unmasked (q, k) pair, S(S+1)/2 of
+    # them, at the bf16 tensor-core rate.
+    fs, fhq, fd = 1024, 8, 256
+    qf, kf, vf = k5_inputs(1, fhq, 1, fs, fs, fd, seed, dev, torch.bfloat16)
+    # q in the layout _project_qkv passes: [B, Hq, S, D] with row stride Hq*D
+    qf = qf.transpose(1, 2).contiguous().transpose(1, 2)
+    substr["flash_attention"] = "flash_attention_kernel"
+    kernels.append({
+        "name": "flash_attention", "task": "gemma-2b prefill layer, bf16",
+        "batch": fs,
+        "kernel": lambda: flash_attention.flash_attention_cuda(qf, kf, vf),
+        "plain": lambda: flash_attention.flash_attention_plain(qf, kf, vf),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+            qf, kf, vf, is_causal=True, enable_gqa=True),
+        "bytes": (2 * qf.numel() + kf.numel() + vf.numel())
+        * qf.element_size(),
+        "ops": 4 * fhq * fd * fs * (fs + 1) // 2,
+        "ops_per_s": BF16_FLOPS_PER_S})
     for k in kernels:
         calls = k.pop("calls", 40)
         k["ms"] = per_call_ms(k["kernel"], calls=calls)
@@ -713,7 +1006,7 @@ def main(seed: int) -> dict:
             k["bytes"], k["ops"], k.pop("ops_per_s", INT_OPS_PER_S))
         for fn in ("kernel", "plain", "library"):
             del k[fn]
-    del x4, w4, b4
+    del x4, w4, b4, qf, kf, vf
 
     # the engine under the profiler: device busy share of a serving pass
     for key, (task, backend) in (("mnist/fused", ("mnist", "fused")),
@@ -732,7 +1025,10 @@ def main(seed: int) -> dict:
               f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / wall:.3f} "
               f"[{smi}]", flush=True)
     for k in kernels:
-        if k["name"] == "unit_affine":
+        if k["name"] == "flash_attention":
+            # the LM serving path: one launch per layer per prefill
+            k["launches"] = report["serve_gemma"]["k5_launches"]
+        elif k["name"] == "unit_affine":
             # the toolflow's main path: pretrain + retrain + compile
             k["launches"] = report["toolflow_mnist"]["k4_launches"]
             k["launches_per_step"] = {

@@ -1,1 +1,2 @@
-"""Model configurations of the port (the paper's Table II designs)."""
+"""Model configurations of the port: the paper's Table II designs and the
+LM architectures."""

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
 Each source under ``csrc/`` (``lut_kernels.cu``: K1-K3, ``subnet_mlp.cu``:
-K4) has a plain C interface, so it compiles in seconds with ``nvcc`` straight
-into its own shared library (no PyTorch headers) and loads with ``ctypes``.
+K4, ``flash_attention.cu``: K5) has a plain C interface, so it compiles in
+seconds with ``nvcc`` straight into its own shared library (no PyTorch
+headers) and loads with ``ctypes``.
 The libraries are built at first use into ``build/repro_torch`` at the
 repository root, each named by a hash of its source and the flags, so an
 edited source is rebuilt and an unchanged one is reused.  Missing libraries
@@ -27,7 +28,8 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"lut_kernels": CSRC / "lut_kernels.cu",
-           "subnet_mlp": CSRC / "subnet_mlp.cu"}
+           "subnet_mlp": CSRC / "subnet_mlp.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -124,6 +126,7 @@ def build() -> Dict[str, Tuple[Path, float, str]]:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "lut_kernels": {
         "lut_lookup_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -135,6 +138,11 @@ _SIGNATURES = {
     "subnet_mlp": {
         "unit_affine_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
                                _L, _L, _L, _I, _I, _P),
+    },
+    "flash_attention": {
+        "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
+                                   _I, _I, _F, _I, _P),
     },
 }
 

@@ -15,6 +15,9 @@ that fails to build or launch raises.
 * :func:`unit_affine` -- one affine stage of the per-unit MLPs: K4 on CUDA
   tensors, the plain einsum on CPU tensors (``impl=None``); ``"einsum"``
   pins the plain version, ``"pallas"`` pins K4.
+* :func:`flash_attention` -- blockwise attention: K5 on CUDA tensors, the
+  plain ``mha_ref`` on CPU tensors (``impl=None``); ``"ref"`` pins the
+  plain version, ``"pallas"`` pins K5.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import autotune, lut_cascade as _lc, lut_gather, ref
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import subnet_mlp
 
 
@@ -92,3 +96,24 @@ def unit_affine(x: torch.Tensor, w: torch.Tensor,
                              "and needs CUDA tensors")
         return subnet_mlp.UnitAffine.apply(x, w, b, activate)
     raise ValueError(f"unknown unit_affine impl {impl!r}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Skv, D]`` -> ``[B, Hq, Sq, D]``.
+    ``impl=None`` dispatches by device (K5 on CUDA, plain on the CPU);
+    ``"ref"`` always runs the plain version; ``"pallas"`` is K5 and raises
+    on the CPU."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if impl is None:
+        return _fa.flash_attention(q, k, v, **kw)
+    if impl == "ref":
+        return ref.mha_ref(q, k, v, **kw)
+    if impl == "pallas":
+        if q.device.type != "cuda":
+            raise ValueError("flash_attention impl='pallas' is the CUDA "
+                             "kernel and needs CUDA tensors")
+        return _fa.flash_attention_cuda(q, k, v, **kw)
+    raise ValueError(f"unknown flash_attention impl {impl!r}")

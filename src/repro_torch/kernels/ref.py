@@ -32,3 +32,32 @@ def unit_affine_ref(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     if b is not None:
         y = y + b
     return torch.relu(y) if activate else y
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, window: Optional[int] = None,
+            q_offset: int = 0, scale: Optional[float] = None) -> torch.Tensor:
+    """Attention with a full softmax, in f32, KV repeated per group.
+
+    q ``[B, Hq, Sq, D]``; k, v ``[B, Hkv, Skv, D]`` with ``Hq % Hkv == 0``.
+    ``q_offset`` is the absolute position of ``q[:, :, 0]`` (``Skv - Sq``
+    to decode); ``window`` the sliding-window size (None: full).  Returns
+    ``[B, Hq, Sq, D]`` in q's type.
+    """
+    d = q.shape[-1]
+    sq, skv = q.shape[2], k.shape[2]
+    group = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1).float()
+    vv = v.repeat_interleave(group, dim=1).float()
+    scale = d ** -0.5 if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)

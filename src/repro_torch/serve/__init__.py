@@ -1,1 +1,2 @@
-"""Serving layer of the port: the micro-batching LUT engine."""
+"""Serving layer of the port: the micro-batching LUT engine and the LM
+serving engine."""

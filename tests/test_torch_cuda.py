@@ -8,7 +8,8 @@ import torch
 
 from repro_torch import pipeline
 from repro_torch.configs import paper_tasks
-from repro_torch.kernels import build, lut_cascade, lut_gather, subnet_mlp
+from repro_torch.kernels import (build, flash_attention, lut_cascade,
+                                 lut_gather, subnet_mlp)
 from repro_torch.serve.lut_engine import LUTEngine
 
 
@@ -164,3 +165,72 @@ def test_unit_affine_bf16_and_gradient(cuda):
     for g, p in zip(*grads):
         torch.testing.assert_close(g, p, rtol=1e-4,
                                    atol=1e-5 * float(p.abs().max()))
+
+
+# the reference test's cases (tests/test_kernels.py), D = 32
+FLASH_CASES = [(hq, hkv, sq, skv, causal, window)
+               for hq, hkv in ((4, 4), (4, 2), (8, 1))
+               for sq, skv, causal, window in ((64, 64, True, None),
+                                               (64, 64, False, None),
+                                               (100, 100, True, 32),
+                                               (1, 96, True, None),
+                                               (1, 96, True, 24))]
+
+
+def _qkv(b, hq, hkv, sq, skv, d, seed, dev, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
+                 for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                               (b, hkv, skv, d)))
+
+
+@pytest.mark.parametrize("hq,hkv,sq,skv,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_and_counts(hq, hkv, sq, skv,
+                                                         causal, window,
+                                                         cuda):
+    """The reference's tolerance, rtol = atol = 2e-5, in f32."""
+    q, k, v = _qkv(2, hq, hkv, sq, skv, 32, hq + sq, cuda)
+    kw = dict(causal=causal, window=window, q_offset=skv - sq)
+    build.reset_counters()
+    got = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(
+        got, flash_attention.flash_attention_plain(q, k, v, **kw),
+        rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s", [1024, 130, 7])
+def test_flash_attention_gemma_shapes_f32_bf16_and_strides(s, cuda):
+    """gemma-2b's prefill: 8 q heads on 1 KV head, D = 256, causal.  f32 at
+    2e-5; bf16 within one bf16 ulp (both sides compute in f32 from the same
+    bf16 values and round once), rtol 2^-7, atol 1e-5.  A q given as the
+    strided view the model passes gives the same result."""
+    q, k, v = _qkv(1, 8, 1, s, s, 256, s, cuda)
+    want = flash_attention.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(flash_attention.flash_attention_cuda(q, k, v),
+                               want, rtol=2e-5, atol=2e-5)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(flash_attention.flash_attention_cuda(qt, k, v),
+                               want, rtol=2e-5, atol=2e-5)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    got = flash_attention.flash_attention_cuda(qb, kb, vb)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), flash_attention.flash_attention_plain(qb, kb, vb).float(),
+        rtol=2 ** -7, atol=1e-5)
+
+
+def test_flash_attention_window_and_refusals(cuda):
+    q, k, v = _qkv(1, 8, 1, 1024, 1024, 256, 5, cuda)
+    torch.testing.assert_close(
+        flash_attention.flash_attention_cuda(q, k, v, window=256),
+        flash_attention.flash_attention_plain(q, k, v, window=256),
+        rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_cuda(*_qkv(1, 2, 1, 4, 4, 264, 0,
+                                                   cuda))
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention.flash_attention_cuda(q.requires_grad_(), k, v)

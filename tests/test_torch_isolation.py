@@ -73,3 +73,12 @@ def test_entry_points_refuse_to_run_on_cpu_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         device.resolve()
     assert device.resolve("cpu").type == "cpu"
+    from repro_torch.configs import lm_archs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    lcfg = lm_archs.smoke("gemma-2b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(lcfg, torch.Generator())
+    model = lm.init_params(lcfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(lcfg, model, slots=1, context=16)
