@@ -19,8 +19,9 @@ shapes, and drives both main paths:
 * LM serving (slice 3): full-width ``gemma-2b`` (random bf16 weights from
   ``torch.Generator("cuda").manual_seed(seed)``) serving six requests on
   four slots through ``ServeEngine``, every layer's prefill attention
-  through the flash kernel K5; decode against prefill on the card, and a
-  2-layer f32 cut of it on the card against the CPU.
+  through K5's wgmma kernel (slice 4); decode against prefill on the card,
+  and a 2-layer f32 cut of it (K5's SIMT kernel) on the card against the
+  CPU.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
@@ -53,6 +54,8 @@ SOURCES = {
     "lut_lookup": "src/repro_torch/kernels/csrc/lut_kernels.cu",
     "unit_affine": "src/repro_torch/kernels/csrc/subnet_mlp.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_wgmma":
+        "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
 }
 REPLACES = {
     "lut_cascade_resident": "src/repro/kernels/lut_cascade.py:136",
@@ -60,6 +63,7 @@ REPLACES = {
     "lut_lookup": "src/repro/kernels/lut_gather.py:40",
     "unit_affine": "src/repro/kernels/subnet_mlp.py:23",
     "flash_attention": "src/repro/kernels/flash_attention.py:29",
+    "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:29",
 }
 # K4 against its plain version: (batch, units, din, dout, stride-0 unit
 # axis, activate) -- dense layer 0 of mnist, a hidden stage, the last
@@ -303,7 +307,8 @@ K5_CASES = tuple((hq, hkv, sq, skv, causal, window)
                                                  (1, 96, True, 24)))
 K5_F32_TOL = 2e-5             # the reference test's rtol = atol
 K5_BF16_RTOL = 2 ** -7        # one bf16 ulp: both sides compute in f32 from
-K5_BF16_ATOL = 1e-5           # the same bf16 values and round once
+K5_BF16_ATOL = 1e-5           # the same bf16 values and round once (the
+                              # wgmma kernel with p split into two bf16 terms)
 GEMMA_PROMPTS = (1024, 700, 512, 130, 33, 7)
 GEMMA_NEW_TOKENS = 16
 # decode vs prefill in bf16 through 18 layers: prefill's [S, d] GEMMs and
@@ -326,21 +331,40 @@ def k5_inputs(b, hq, hkv, sq, skv, d, seed, dev, dtype=None):
         for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
 
 
-def check_flash_attention(dev) -> float:
-    """K5 against its plain version: the reference test's 15 cases (f32,
-    D 32), gemma-2b's prefill shapes ([1, 8, S, 256] q on [1, 1, S, 256]
-    k/v, causal, S in 1024 / 130 / 7) in f32 and bf16, a window of 256 at
-    S 1024, and q as the strided view the model passes.  Returns the max
-    |diff| of the f32 checks; fails on any disagreement."""
+# K5's wgmma kernel against the plain version, bf16, (b, hq, hkv, sq, skv, d,
+# window, q_offset): gemma-2b at every serve prompt length, a window of 256,
+# minitron-4b's D 128 GQA ([1, 24, S, 128] on 8 KV heads), and Sq < Skv
+# with q_offset as the reference's decode cases have it
+K5_WGMMA_CASES = ([(1, 8, 1, s, s, 256, None, 0) for s in GEMMA_PROMPTS]
+                  + [(1, 8, 1, 1024, 1024, 256, 256, 0),
+                     (1, 24, 8, 1024, 1024, 128, None, 0),
+                     (1, 24, 8, 130, 130, 128, None, 0),
+                     (1, 8, 1, 1, 96, 256, None, 95),
+                     (2, 4, 2, 1, 96, 128, 24, 95),
+                     (2, 4, 2, 1, 96, 64, None, 95),
+                     (2, 4, 2, 100, 100, 64, 32, 0)])
+
+
+def check_flash_attention(dev) -> dict:
+    """K5's two kernels against the plain version.  The SIMT kernel: the
+    reference test's 15 cases (f32, D 32), gemma-2b's prefill shapes
+    ([1, 8, S, 256] q on [1, 1, S, 256] k/v, causal, S in 1024 / 130 / 7)
+    in f32 and bf16, a window of 256 at S 1024, and q as the strided view
+    the model passes.  The wgmma kernel: the cases of ``K5_WGMMA_CASES``,
+    with q contiguous and as the model's strided view.
+    Also reports, as information, what rounding p once to bf16 instead of
+    splitting it would do on gemma's 1024 case.  Returns the max |diff| of
+    each kernel (the SIMT kernel's f32 checks); fails on any
+    disagreement."""
     import torch
     from repro_torch.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
-    worst, worst_bf16, n = 0.0, 0.0, 0
+    worst, worst_bf16, worst_wgmma, n = 0.0, 0.0, 0.0, 0
 
-    def hold(q, k, v, label, **kw):
-        nonlocal worst, worst_bf16, n
-        got = fa.flash_attention_cuda(q, k, v, **kw)
+    def hold(fn, q, k, v, label, **kw):
+        nonlocal worst, worst_bf16, worst_wgmma, n
+        got = fn(q, k, v, **kw)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, **kw)
         err = float((got.float() - want.float()).abs().max())
@@ -349,40 +373,75 @@ def check_flash_attention(dev) -> float:
             worst = max(worst, err)
             ok = torch.allclose(got, want, rtol=K5_F32_TOL, atol=K5_F32_TOL)
         else:
-            worst_bf16 = max(worst_bf16, err)
+            if fn is fa.flash_attention_wgmma_cuda:
+                worst_wgmma = max(worst_wgmma, err)
+            else:
+                worst_bf16 = max(worst_bf16, err)
             ok = torch.allclose(got.float(), want.float(), rtol=K5_BF16_RTOL,
                                 atol=K5_BF16_ATOL)
         if not ok:
-            fail(f"K5 {label} {q.dtype}: max |diff| {err}")
+            fail(f"K5 {fn.__name__} {label} {q.dtype}: max |diff| {err}")
 
+    simt = fa.flash_attention_simt_cuda
     for hq, hkv, sq, skv, causal, window in K5_CASES:
-        hold(*k5_inputs(2, hq, hkv, sq, skv, 32, hq + sq, dev),
+        hold(simt, *k5_inputs(2, hq, hkv, sq, skv, 32, hq + sq, dev),
              f"[{hq},{hkv},{sq},{skv},{causal},{window}]", causal=causal,
              window=window, q_offset=skv - sq)
     for s in (1024, 130, 7):
         q, k, v = k5_inputs(1, 8, 1, s, s, 256, s, dev)
-        hold(q, k, v, f"gemma S {s}")
-        hold(*(t.bfloat16() for t in (q, k, v)), f"gemma S {s}")
+        hold(simt, q, k, v, f"gemma S {s}")
+        hold(simt, *(t.bfloat16() for t in (q, k, v)), f"gemma S {s}")
         qt = q.transpose(1, 2).contiguous().transpose(1, 2)
-        hold(qt, k, v, f"gemma S {s} strided q")
-    hold(*k5_inputs(1, 8, 1, 1024, 1024, 256, 3, dev), "window 256",
+        hold(simt, qt, k, v, f"gemma S {s} strided q")
+    hold(simt, *k5_inputs(1, 8, 1, 1024, 1024, 256, 3, dev), "window 256",
          window=256)
-    print(f"K5 vs plain: {n} checks, f32 max |diff| {worst:.3e} (tolerance "
-          f"{K5_F32_TOL}), bf16 max |diff| {worst_bf16:.3e} (rtol "
-          f"{K5_BF16_RTOL}, atol {K5_BF16_ATOL}) "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    return worst
+    n_simt = n
+
+    wgmma = fa.flash_attention_wgmma_cuda
+    for b, hq, hkv, sq, skv, d, window, q_offset in K5_WGMMA_CASES:
+        q, k, v = k5_inputs(b, hq, hkv, sq, skv, d, sq + d, dev,
+                            torch.bfloat16)
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+        for qq, how in ((q, ""), (qt, " strided q")):
+            hold(wgmma, qq, k, v, f"[{b},{hq},{hkv},{sq},{skv},{d}] window "
+                 f"{window} q_offset {q_offset}{how}", window=window,
+                 q_offset=q_offset)
+
+    # information only: p rounded once to bf16 (split_p=False)
+    q, k, v = k5_inputs(1, 8, 1, 1024, 1024, 256, 1024, dev, torch.bfloat16)
+    want = fa.flash_attention_plain(q, k, v).float()
+    tol = K5_BF16_ATOL + K5_BF16_RTOL * want.abs()
+    single = {}
+    for split in (True, False):
+        got = wgmma(q, k, v, split_p=split).float()
+        diff = (got - want).abs()
+        single["split" if split else "single"] = {
+            "max_abs_diff": float(diff.max()),
+            "max_diff_over_tolerance": float((diff / tol).max()),
+            "elements_outside_tolerance": int((diff > tol).sum())}
+    torch.cuda.synchronize()
+    print(f"K5 vs plain: {n_simt} checks of the SIMT kernel, f32 max |diff| "
+          f"{worst:.3e} (tolerance {K5_F32_TOL}), bf16 max |diff| "
+          f"{worst_bf16:.3e}; {n - n_simt} checks of the wgmma kernel, max "
+          f"|diff| {worst_wgmma:.3e} (rtol {K5_BF16_RTOL}, atol "
+          f"{K5_BF16_ATOL}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"K5 wgmma on gemma S 1024, p split vs p rounded once to bf16 "
+          f"(information): {single}", flush=True)
+    return {"flash_attention": worst, "flash_attention_wgmma": worst_wgmma,
+            "single_p": single}
 
 
 def serve_gemma(dev, smi: str, seed: int) -> dict:
     """The LM serving path at full width: ``gemma-2b`` (18 layers, bf16,
     random weights) serves six requests on four slots through
     ``ServeEngine`` with the launch counts set to 0 just before; fails
-    unless K5 launched exactly once per layer per prefill (108), every
-    request got its 16 tokens in range, every logit was finite, decode
-    matches prefill on the card (in bf16 within a sanity bound with the
-    same argmax, and in f32 on a 2-layer cut at the reference's 2e-4), and
-    that 2-layer cut agrees with the CPU.  Returns the serving numbers."""
+    unless K5's wgmma kernel launched exactly once per layer per prefill
+    (108) and its SIMT kernel never, every request got its 16 tokens in
+    range, every logit was finite, decode matches prefill on the card (in
+    bf16 within a sanity bound with the same argmax, and in f32 on a
+    2-layer cut at the reference's 2e-4, where the SIMT kernel runs once
+    per layer), and that 2-layer cut agrees with the CPU.  Returns the
+    serving numbers."""
     import dataclasses
     import numpy as np
     import torch
@@ -431,11 +490,13 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
     wall = time.perf_counter() - t0
     counts = build.launch_counts()
     out["launches"] = counts
-    out["k5_launches"] = counts.get("flash_attention", 0)
+    out["k5_launches"] = counts.get("flash_attention_wgmma", 0)
     want = cfg.n_layers * len(GEMMA_PROMPTS)
-    if out["k5_launches"] != want:
-        fail(f"gemma-2b serve: K5 launched {out['k5_launches']} times, not "
-             f"{want} (one per layer per prefill, none in decode)")
+    if out["k5_launches"] != want or counts.get("flash_attention", 0):
+        fail(f"gemma-2b serve: K5's wgmma kernel launched "
+             f"{out['k5_launches']} times, not {want} (one per layer per "
+             "prefill, none in decode), and its SIMT kernel "
+             f"{counts.get('flash_attention', 0)} times, not 0")
     if len(done) != len(reqs) or any(
             len(r.out_tokens) != GEMMA_NEW_TOKENS
             or not all(0 <= t < cfg.vocab for t in r.out_tokens)
@@ -455,7 +516,7 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
         tokens_per_s=(st.tokens_out + len(reqs)) / wall,
         tokens={r.rid: r.out_tokens for r in done})
     print(f"gemma-2b serve: 6 requests on 4 slots in {wall:.3f} s, K5 "
-          f"launches {out['k5_launches']}, prefill ms by prompt length "
+          f"(wgmma) launches {out['k5_launches']}, prefill ms by prompt length "
           f"{ {n: round(ms, 2) for n, ms in out['prefill_ms'].items()} }, "
           f"{st.decode_steps} decode ticks, median "
           f"{out['decode_ms_median']:.2f} ms/tick, "
@@ -468,10 +529,14 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
     wall_p, prof = profile(lambda: lm.prefill(params, cfg, toks, 2048),
                            calls=1)
     busy = sum(sec for _, sec in prof.values())
-    k5 = sum(sec for key, (_, sec) in prof.items()
-             if "flash_attention_kernel" in key)
+    k5_hits = [v for key, v in prof.items()
+               if "flash_attention_wgmma_kernel" in key
+               or "flash_attention_kernel" in key]
+    k5 = sum(sec for _, sec in k5_hits)
+    k5_n = sum(c for c, _ in k5_hits)
     out["prefill_profile"] = {"wall_s": wall_p, "device_busy_s": busy,
-                              "k5_device_s": k5,
+                              "k5_device_s": k5, "k5_launches": k5_n,
+                              "k5_device_ms_per_layer": k5 * 1e3 / max(k5_n, 1),
                               "device_idle_share": 1.0 - busy / wall_p,
                               "k5_share_of_busy": k5 / busy}
     cache = eng.cache
@@ -482,8 +547,8 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
     out["decode_profile"] = {"wall_s": wall_d, "device_busy_s": busy_d,
                              "device_idle_share": 1.0 - busy_d / wall_d}
     print(f"profile gemma-2b prefill 1024: wall {wall_p * 1e3:.2f} ms, "
-          f"device busy {busy * 1e3:.2f} ms, K5 {k5 * 1e3:.2f} ms "
-          f"({k5 / busy:.3f} of busy), idle share {1.0 - busy / wall_p:.3f}; "
+          f"device busy {busy * 1e3:.2f} ms, K5 {k5 * 1e3:.2f} ms in "
+          f"{k5_n} launches ({k5 / busy:.3f} of busy), idle share {1.0 - busy / wall_p:.3f}; "
           f"decode tick (4 slots): wall {wall_d * 1e3:.2f} ms, device busy "
           f"{busy_d * 1e3:.2f} ms, idle share {1.0 - busy_d / wall_d:.3f} "
           f"[{smi}]", flush=True)
@@ -521,8 +586,11 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
     prompt = torch.from_numpy(reqs[0].prompt[None, :130])
     build.reset_counters()
     got, _ = lm.prefill(card, cfg2, prompt.to(dev), 2048)
-    if build.launch_counts().get("flash_attention", 0) != 2:
-        fail("gemma-2b card vs CPU: K5 did not run once per layer")
+    out["k5_simt_launches_f32_cut"] = build.launch_counts().get(
+        "flash_attention", 0)
+    if out["k5_simt_launches_f32_cut"] != 2:
+        fail("gemma-2b card vs CPU: K5's SIMT kernel did not run once per "
+             "layer")
     # decode matches prefill on the card in f32, n = 129
     _, c = lm.prefill(card, cfg2, prompt[:, :129].to(dev), 2048)
     dec, _ = lm.decode_step(card, cfg2, c, prompt[:, 129:130].to(dev))
@@ -549,6 +617,28 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
         fail(f"gemma-2b card vs CPU: max |diff| {err}")
     del card, cpu
     torch.cuda.empty_cache()
+    return out
+
+
+def k5_by_prompt(dev, seed: int, smi: str) -> dict:
+    """K5's wgmma kernel alone on one gemma-2b layer (q the model's strided
+    view, bf16, causal) at every serve prompt length: ms by CUDA events and
+    device ms from the profiler's trace."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for s in GEMMA_PROMPTS:
+        q, k, v = k5_inputs(1, 8, 1, s, s, 256, seed + s, dev, torch.bfloat16)
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+        fn = lambda: fa.flash_attention_wgmma_cuda(q, k, v)  # noqa: E731
+        _, prof = profile(fn)
+        dev_s = sum(sec for key, (_, sec) in prof.items()
+                    if "flash_attention_wgmma_kernel" in key)
+        out[s] = {"ms": per_call_ms(fn), "device_ms": dev_s * 1e3 / 10}
+    print(f"K5 wgmma alone by prompt length (ms, device ms): "
+          f"{ {s: (round(v['ms'], 4), round(v['device_ms'], 4)) for s, v in out.items()} } "
+          f"[{smi}]", flush=True)
     return out
 
 
@@ -829,7 +919,7 @@ def main(seed: int) -> dict:
     rs = np.random.RandomState(seed + 1)
 
     # -- phase 3: each kernel against its plain version ----------------------
-    errs = {k: 0 for k in REPLACES}
+    errs = {k: 0 for k in REPLACES if not k.startswith("flash_attention")}
     t3 = time.perf_counter()
     mnist_plan = nets["mnist"].compile_backend("pallas").plan
     for l, lm in enumerate(mnist_plan.meta["layers"]):
@@ -870,7 +960,10 @@ def main(seed: int) -> dict:
     if any(errs.values()):
         fail(f"a kernel disagrees with its plain version: {errs}")
     errs["unit_affine"] = check_unit_affine(dev)
-    errs["flash_attention"] = check_flash_attention(dev)
+    k5_errs = check_flash_attention(dev)
+    errs["flash_attention"] = k5_errs["flash_attention"]
+    errs["flash_attention_wgmma"] = k5_errs["flash_attention_wgmma"]
+    report["k5_single_p"] = k5_errs["single_p"]
 
     # -- phase 4: serve from a reloaded artifact through LUTEngine ----------
     art_dir = ROOT / "build" / "chip_smoke"
@@ -900,8 +993,10 @@ def main(seed: int) -> dict:
     # -- phase 5: kernel times at the main path's shapes (block 1024) -------
     # Each kernel's "ms" is one main-path block of 1024 rows: one launch of
     # K1/K2, one launch per layer of K3 (nid has 5 layers).  Times are CUDA
-    # events around 40 back-to-back blocks; device_ms is the kernels' own
-    # time in the profiler's CUDA trace.
+    # events around 40 back-to-back blocks, which is host time when the
+    # Python wrapper takes longer than the kernel; device_ms is the kernels'
+    # own time in the profiler's CUDA trace, library_device_ms that of every
+    # kernel the library call launches.
     kernels = []
     b = 1024
     substr = {"lut_cascade_streamed": "cascade_streamed_kernel",
@@ -971,27 +1066,38 @@ def main(seed: int) -> dict:
         "bytes": (kb * kdin + ku * kdin * kdout + ku * kdout
                   + kb * ku * kdout) * 4,
         "ops": 2 * kb * ku * kdin * kdout, "ops_per_s": F32_FLOPS_PER_S})
-    # K5 on one layer of gemma-2b's 1024-token prefill, bf16, causal; the
-    # yardstick is one scaled_dot_product_attention call (timed here only,
-    # no module of the port calls it).  Bytes: q, k, v read once, o written
-    # once; operations: 4 * Hq * D per unmasked (q, k) pair, S(S+1)/2 of
-    # them, at the bf16 tensor-core rate.
+    # K5 on one layer of gemma-2b's 1024-token prefill, bf16, causal, both
+    # kernels on the same inputs; the yardstick is one
+    # scaled_dot_product_attention call (timed here only, no module of the
+    # port calls it).  Bytes: q, k, v read once, o written once; operations:
+    # 4 * Hq * D per unmasked (q, k) pair, S(S+1)/2 of them, at the bf16
+    # tensor-core rate (the wgmma kernel's split p does 1.5x that work; the
+    # bound counts the function's).
     fs, fhq, fd = 1024, 8, 256
     qf, kf, vf = k5_inputs(1, fhq, 1, fs, fs, fd, seed, dev, torch.bfloat16)
     # q in the layout _project_qkv passes: [B, Hq, S, D] with row stride Hq*D
     qf = qf.transpose(1, 2).contiguous().transpose(1, 2)
+    k5_work = {"bytes": (2 * qf.numel() + kf.numel() + vf.numel())
+               * qf.element_size(),
+               "ops": 4 * fhq * fd * fs * (fs + 1) // 2,
+               "ops_per_s": BF16_FLOPS_PER_S,
+               "plain": lambda: flash_attention.flash_attention_plain(
+                   qf, kf, vf),
+               "library": lambda: torch.nn.functional.
+               scaled_dot_product_attention(qf, kf, vf, is_causal=True,
+                                            enable_gqa=True)}
     substr["flash_attention"] = "flash_attention_kernel"
+    substr["flash_attention_wgmma"] = "flash_attention_wgmma_kernel"
     kernels.append({
         "name": "flash_attention", "task": "gemma-2b prefill layer, bf16",
         "batch": fs,
-        "kernel": lambda: flash_attention.flash_attention_cuda(qf, kf, vf),
-        "plain": lambda: flash_attention.flash_attention_plain(qf, kf, vf),
-        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
-            qf, kf, vf, is_causal=True, enable_gqa=True),
-        "bytes": (2 * qf.numel() + kf.numel() + vf.numel())
-        * qf.element_size(),
-        "ops": 4 * fhq * fd * fs * (fs + 1) // 2,
-        "ops_per_s": BF16_FLOPS_PER_S})
+        "kernel": lambda: flash_attention.flash_attention_simt_cuda(
+            qf, kf, vf), **k5_work})
+    kernels.append({
+        "name": "flash_attention_wgmma",
+        "task": "gemma-2b prefill layer, bf16", "batch": fs,
+        "kernel": lambda: flash_attention.flash_attention_wgmma_cuda(
+            qf, kf, vf), **k5_work})
     for k in kernels:
         calls = k.pop("calls", 40)
         k["ms"] = per_call_ms(k["kernel"], calls=calls)
@@ -1002,11 +1108,15 @@ def main(seed: int) -> dict:
         hits = [v for key, v in prof.items() if substr[k["name"]] in key]
         k["device_ms"] = (sum(s for _, s in hits) * 1e3 / 10 if hits
                           else None)
+        # the library call's own device time: every kernel it launches
+        k["library_device_ms"] = None if k["library"] is None else sum(
+            s for _, s in profile(k["library"])[1].values()) * 1e3 / 10
         k["bound_ms"], k["bound_by"] = bound(
             k["bytes"], k["ops"], k.pop("ops_per_s", INT_OPS_PER_S))
         for fn in ("kernel", "plain", "library"):
             del k[fn]
     del x4, w4, b4, qf, kf, vf
+    report["k5_by_prompt"] = k5_by_prompt(dev, seed, smi)
 
     # the engine under the profiler: device busy share of a serving pass
     for key, (task, backend) in (("mnist/fused", ("mnist", "fused")),
@@ -1025,9 +1135,12 @@ def main(seed: int) -> dict:
               f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / wall:.3f} "
               f"[{smi}]", flush=True)
     for k in kernels:
-        if k["name"] == "flash_attention":
+        if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
             k["launches"] = report["serve_gemma"]["k5_launches"]
+        elif k["name"] == "flash_attention":
+            # the f32 2-layer cut of the serving path
+            k["launches"] = report["serve_gemma"]["k5_simt_launches_f32_cut"]
         elif k["name"] == "unit_affine":
             # the toolflow's main path: pretrain + retrain + compile
             k["launches"] = report["toolflow_mnist"]["k4_launches"]
@@ -1045,7 +1158,8 @@ def main(seed: int) -> dict:
         k["replaces"] = REPLACES[k["name"]]
         print(f"time {k['name']} ({k['task']}, batch {k['batch']}): kernel "
               f"{k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
-              f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound "
+              f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms (device "
+              f"{k['library_device_ms']} ms), bound "
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}) [{smi}]", flush=True)
     report["kernels"] = kernels
     return report

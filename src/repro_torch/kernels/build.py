@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
 Each source under ``csrc/`` (``lut_kernels.cu``: K1-K3, ``subnet_mlp.cu``:
-K4, ``flash_attention.cu``: K5) has a plain C interface, so it compiles in
+K4, ``flash_attention.cu`` and ``flash_attention_wgmma.cu``: the two K5
+kernels) has a plain C interface, so it compiles in
 seconds with ``nvcc`` straight into its own shared library (no PyTorch
 headers) and loads with ``ctypes``.
 The libraries are built at first use into ``build/repro_torch`` at the
@@ -29,7 +30,8 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"lut_kernels": CSRC / "lut_kernels.cu",
            "subnet_mlp": CSRC / "subnet_mlp.cu",
-           "flash_attention": CSRC / "flash_attention.cu"}
+           "flash_attention": CSRC / "flash_attention.cu",
+           "flash_attention_wgmma": CSRC / "flash_attention_wgmma.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -143,6 +145,11 @@ _SIGNATURES = {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
                                    _I, _I, _F, _I, _P),
+    },
+    "flash_attention_wgmma": {
+        "flash_attention_wgmma_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _L, _L, _L, _L, _L, _L, _L, _L,
+                                         _L, _I, _I, _I, _F, _I, _P),
     },
 }
 

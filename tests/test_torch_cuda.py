@@ -221,6 +221,70 @@ def test_flash_attention_gemma_shapes_f32_bf16_and_strides(s, cuda):
         rtol=2 ** -7, atol=1e-5)
 
 
+# the wgmma kernel's cases: (b, hq, hkv, sq, skv, d, window, q_offset) --
+# gemma-2b at every serve prompt length, a window of 256, minitron-4b's
+# D 128 GQA, and decode-shaped Sq < Skv with q_offset
+WGMMA_CASES = ([(1, 8, 1, s, s, 256, None, 0)
+                for s in (1024, 700, 512, 130, 33, 7)]
+               + [(1, 8, 1, 1024, 1024, 256, 256, 0),
+                  (1, 24, 8, 1024, 1024, 128, None, 0),
+                  (1, 24, 8, 130, 130, 128, None, 0),
+                  (2, 4, 2, 1, 96, 64, None, 95),
+                  (2, 4, 2, 1, 96, 64, 24, 95),
+                  (2, 4, 2, 100, 100, 64, 32, 0),
+                  (1, 8, 1, 1, 96, 256, None, 95)])
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,window,q_offset", WGMMA_CASES)
+def test_flash_attention_wgmma_matches_plain_and_counts(b, hq, hkv, sq, skv,
+                                                        d, window, q_offset,
+                                                        cuda):
+    """bf16 at the unchanged tolerance, rtol 2^-7, atol 1e-5: one bf16 ulp
+    of the f32 computation, which p split into two bf16 terms keeps."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, sq + d, cuda, torch.bfloat16)
+    kw = dict(window=window, q_offset=q_offset)
+    build.reset_counters()
+    got = flash_attention.flash_attention_wgmma_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[flash_attention.WGMMA] == 1
+    assert build.launch_counts()[flash_attention.SIMT] == 0
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    torch.testing.assert_close(
+        got.float(), flash_attention.flash_attention_plain(q, k, v, **kw).float(),
+        rtol=2 ** -7, atol=1e-5)
+
+
+def test_flash_attention_routes_bf16_to_wgmma_and_f32_to_simt(cuda):
+    """The model's strided q in bf16 goes to the wgmma kernel; the same
+    operands in f32 still go to the SIMT kernel, at the reference's 2e-5."""
+    q, k, v = _qkv(1, 8, 1, 700, 700, 256, 9, cuda)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    for dtype, kernel, tol in ((torch.bfloat16, flash_attention.WGMMA,
+                                dict(rtol=2 ** -7, atol=1e-5)),
+                               (torch.float32, flash_attention.SIMT,
+                                dict(rtol=2e-5, atol=2e-5))):
+        qd, kd, vd = (t.to(dtype) for t in (qt, k, v))
+        assert flash_attention.route(qd, kd, vd) == kernel
+        build.reset_counters()
+        got = flash_attention.flash_attention_cuda(qd, kd, vd)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        assert counts[kernel] == 1 and sum(counts.values()) == 1
+        torch.testing.assert_close(
+            got.float(),
+            flash_attention.flash_attention_plain(qd, kd, vd).float(), **tol)
+
+
+def test_flash_attention_wgmma_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(1, 8, 1, 64, 64, 256, 1, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="16 B"):
+        flash_attention.flash_attention_wgmma_cuda(q.float(), k.float(),
+                                                   v.float())
+    with pytest.raises(ValueError, match="16 B"):      # base 8 B off
+        flash_attention.flash_attention_wgmma_cuda(q[..., 4:132], k[..., :128],
+                                                   v[..., :128])
+
+
 def test_flash_attention_window_and_refusals(cuda):
     q, k, v = _qkv(1, 8, 1, 1024, 1024, 256, 5, cuda)
     torch.testing.assert_close(

@@ -105,12 +105,12 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_counts_nothing():
 def test_every_source_is_built_and_a_failed_build_raises(tmp_path,
                                                          monkeypatch):
     assert set(build.SOURCES) == {"lut_kernels", "subnet_mlp",
-                                  "flash_attention"}
+                                  "flash_attention", "flash_attention_wgmma"}
     assert set(build._SIGNATURES) == set(build.SOURCES)
     assert all(p.is_file() for p in build.SOURCES.values())
     assert "unit_affine_launch" in build._SIGNATURES["subnet_mlp"]
     names = {build._lib_path(n).name for n in build.SOURCES}
-    assert len(names) == 3
+    assert len(names) == len(build.SOURCES)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "nvcc", lambda: "/bin/false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
