@@ -12,10 +12,12 @@ shapes, and drives both main paths:
   ``pallas`` backend, lookup kernel K3) from a saved and reloaded artifact
   through ``LUTEngine``, with random tables drawn with
   ``numpy.random.RandomState(seed)``;
-* the toolflow (slice 2): full-width ``mnist`` pre-trained dense, pruned,
-  re-trained and folded through the per-unit affine kernel K4, then saved,
-  reloaded and served; one training step on the card against the CPU;
-  ``nid_reduced`` trained to the reference test's accuracy gate;
+* the toolflow (slices 2 and 5): full-width ``mnist`` pre-trained dense,
+  pruned, re-trained and folded through the per-unit affine K4 (its dense
+  and per-unit routes and the dense dx reduction, each held bit for bit
+  against K4's first kernel), then saved, reloaded and served; one training
+  step on the card against the CPU; ``nid_reduced`` trained to the
+  reference test's accuracy gate;
 * LM serving (slice 3): full-width ``gemma-2b`` (random bf16 weights from
   ``torch.Generator("cuda").manual_seed(seed)``) serving six requests on
   four slots through ``ServeEngine``, every layer's prefill attention
@@ -52,7 +54,9 @@ SOURCES = {
     "lut_cascade_resident": "src/repro_torch/kernels/csrc/lut_kernels.cu",
     "lut_cascade_streamed": "src/repro_torch/kernels/csrc/lut_kernels.cu",
     "lut_lookup": "src/repro_torch/kernels/csrc/lut_kernels.cu",
-    "unit_affine": "src/repro_torch/kernels/csrc/subnet_mlp.cu",
+    "unit_affine_dense": "src/repro_torch/kernels/csrc/subnet_mlp.cu",
+    "unit_affine_units": "src/repro_torch/kernels/csrc/subnet_mlp.cu",
+    "unit_affine_dx": "src/repro_torch/kernels/csrc/subnet_mlp.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_wgmma":
         "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
@@ -61,19 +65,41 @@ REPLACES = {
     "lut_cascade_resident": "src/repro/kernels/lut_cascade.py:136",
     "lut_cascade_streamed": "src/repro/kernels/lut_cascade.py:193",
     "lut_lookup": "src/repro/kernels/lut_gather.py:40",
-    "unit_affine": "src/repro/kernels/subnet_mlp.py:23",
+    "unit_affine_dense": "src/repro/kernels/subnet_mlp.py:23",
+    "unit_affine_units": "src/repro/kernels/subnet_mlp.py:23",
+    "unit_affine_dx": "src/repro/kernels/subnet_mlp.py:23",
     "flash_attention": "src/repro/kernels/flash_attention.py:29",
     "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:29",
 }
 # K4 against its plain version: (batch, units, din, dout, stride-0 unit
 # axis, activate) -- dense layer 0 of mnist, a hidden stage, the last
-# affine, backward dx of dense layer 0, a sparse first stage, the fold's
-# enumeration batch, and ragged batches
+# affine, backward dx of dense layer 0 on the per-unit route, a sparse first
+# stage, the fold's enumeration batch, and ragged batches
 K4_SHAPES = ((256, 2160, 784, 64, True, False), (256, 2160, 64, 64, False, True),
              (256, 2160, 64, 1, False, False), (256, 2160, 64, 784, False, False),
              (256, 2160, 6, 64, False, True), (64, 2160, 6, 64, False, True),
              (1, 2160, 6, 64, False, True), (33, 2160, 6, 64, False, True),
              (257, 2160, 6, 64, False, True))
+# K4's dense route on shared rows [B, din] (batch, units, din, dout,
+# activate): layer 0's first affine and bypass, layer 2's (F = 360), the
+# fold's first affine and bypass (64 codes of 6 bits), and a ragged batch
+K4_DENSE_CASES = ((256, 2160, 784, 64, True), (256, 2160, 784, 1, False),
+                  (256, 2160, 360, 64, True), (256, 2160, 360, 1, False),
+                  (64, 2160, 6, 64, True), (64, 2160, 6, 1, False),
+                  (257, 2160, 784, 64, True), (33, 2160, 6, 64, True))
+# the dense gradient dx [B, din] (batch, units, din, dout): layers 0 and 2,
+# first affine and bypass
+K4_DX_CASES = ((256, 2160, 784, 64), (256, 2160, 784, 1),
+               (256, 2160, 360, 64), (256, 2160, 360, 1))
+# K4's launch counters: the total, then one per route, and the name its
+# kernels carry in a profiler trace
+K4_ROUTES = ("unit_affine", "unit_affine_dense", "unit_affine_units",
+             "unit_affine_dx")
+K4_KERNELS = {"unit_affine_dense": "unit_affine_dense_kernel",
+              "unit_affine_units": "unit_affine_units_kernel",
+              "unit_affine_dx": "unit_affine_dx"}
+K4_GRAD_RTOL = 1e-4           # gradients: rtol, and atol 1e-5 x the largest
+K4_GRAD_ATOL = 1e-5           # |gradient| (summation order only)
 
 
 def fail(msg: str) -> None:
@@ -229,15 +255,21 @@ def k4_inputs(b, u, din, dout, stride0, gen, dev, dtype=None):
     return x, w, bias
 
 
-def check_unit_affine(dev) -> float:
+def check_unit_affine(dev) -> dict:
     """K4 against its plain version (TF32 off) at the main path's shapes,
     in f32 and bf16, its gradient against autograd through the plain
-    version, and bit-identical rows at two batch sizes.  Returns the max
-    |diff| of the f32 forward checks; fails on any disagreement.
+    version, and bit-identical rows at two batch sizes; each route equal bit
+    for bit to the reference kernel (K4's first version) on every
+    ``K4_SHAPES`` and ``K4_DENSE_CASES`` case and on batch-major per-unit
+    x in f32 and bf16; the same rows
+    as a stride-0 view, as shared rows and materialised give equal bits; the
+    dense dx reduction within the gradient tolerance of plain autograd and
+    bit-stable across runs and batch sizes.  Returns the max |diff| against
+    the plain version by route; fails on any disagreement.
 
     Tolerance: f32 rtol = atol = 1e-5 (tests/test_kernels.py), times
     sqrt(din/64) where din > 64 (the two sides sum in different orders);
-    bf16 3e-2."""
+    bf16 3e-2; gradients rtol 1e-4, atol 1e-5 x the largest |gradient|."""
     import math
     import torch
     from repro_torch.kernels import subnet_mlp
@@ -245,17 +277,37 @@ def check_unit_affine(dev) -> float:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(7)
     t0 = time.perf_counter()
-    worst = 0.0
-    for b, u, din, dout, s0, act in K4_SHAPES:
-        x, w, bias = k4_inputs(b, u, din, dout, s0, gen, dev)
+    worst = {"unit_affine_dense": 0.0, "unit_affine_units": 0.0,
+             "unit_affine_dx": 0.0}
+
+    def hold(x, w, bias, act, label):
+        """The route against the plain version (f32) and the reference
+        kernel (f32, bf16: bit for bit)."""
         got = subnet_mlp.unit_affine_cuda(x, w, bias, activate=act)
         torch.cuda.synchronize()
         want = subnet_mlp.unit_affine_plain(x, w, bias, activate=act)
-        tol = 1e-5 * max(1.0, math.sqrt(din / 64))
+        tol = 1e-5 * max(1.0, math.sqrt(x.shape[-1] / 64))
         err = float((got - want).abs().max())
-        worst = max(worst, err)
+        key = f"unit_affine_{subnet_mlp.route(x)}"
+        worst[key] = max(worst[key], err)
         if not torch.allclose(got, want, rtol=tol, atol=tol):
-            fail(f"K4 [{b},{u},{din}]x[{u},{din},{dout}]: max |diff| {err}")
+            fail(f"K4 {label}: max |diff| {err}")
+        for dt in (torch.float32, torch.bfloat16):
+            xd, wd, bd = (t.to(dt) for t in (x, w, bias))
+            got = subnet_mlp.unit_affine_cuda(xd, wd, bd, activate=act)
+            ref = subnet_mlp.unit_affine_reference_cuda(xd, wd, bd,
+                                                        activate=act)
+            if not torch.equal(got, ref):
+                fail(f"K4 {label} {dt}: {int((got != ref).sum())} outputs "
+                     "differ from the reference kernel")
+
+    for b, u, din, dout, s0, act in K4_SHAPES:
+        x, w, bias = k4_inputs(b, u, din, dout, s0, gen, dev)
+        hold(x, w, bias, act, f"[{b},{u},{din}]x[{u},{din},{dout}]")
+    for b, u, din, dout, act in K4_DENSE_CASES:
+        x, w, bias = k4_inputs(b, u, din, dout, True, gen, dev)
+        hold(x[:, 0, :], w, bias, act,
+             f"shared rows [{b},{din}]x[{u},{din},{dout}]")
     x, w, bias = k4_inputs(256, 2160, 64, 64, False, gen, dev, torch.bfloat16)
     got = subnet_mlp.unit_affine_cuda(x, w, bias, activate=True).float()
     want = subnet_mlp.unit_affine_plain(x, w, bias, activate=True).float()
@@ -268,30 +320,73 @@ def check_unit_affine(dev) -> float:
                                        activate=True)
     if not torch.equal(full[:33], part):
         fail("K4: rows differ between batch sizes 257 and 33")
-    # gradients: dx through K4 on w^T, dw and db plain, vs plain autograd
-    for b, u, din, dout, s0, act in ((256, 2160, 784, 64, True, False),
-                                     (256, 2160, 64, 64, False, True)):
-        x, w, bias = k4_inputs(b, u, din, dout, s0, gen, dev)
-        leaf = (x[:, 0, :] if s0 else x).clone().requires_grad_()
+    # one layout-free result: a stride-0 view, shared rows and the
+    # materialised copy (what the fold relies on)
+    for b, u, din, dout in ((256, 2160, 784, 64), (64, 2160, 6, 64)):
+        view, w, bias = k4_inputs(b, u, din, dout, True, gen, dev)
+        outs = [subnet_mlp.unit_affine_cuda(t, w, bias, activate=True)
+                for t in (view, view[:, 0, :], view.contiguous())]
+        if not (torch.equal(outs[0], outs[1])
+                and torch.equal(outs[0], outs[2])):
+            fail(f"K4 [{b},{u},{din}]->{dout}: stride-0, shared-rows and "
+                 "materialised inputs give different bits")
+        del outs
+    # per-unit x with its batch axis contiguous (a permute of [din, U, B]):
+    # odd units start 8 bytes off a 16-byte boundary when B is 2 or 6
+    for b, u, din, dout in ((2, 2160, 64, 64), (6, 2160, 6, 64),
+                            (4, 2160, 64, 64)):
+        _, w, bias = k4_inputs(b, u, din, dout, False, gen, dev)
+        x = torch.rand((din, u, b), generator=gen).to(dev).permute(2, 1, 0)
+        hold(x, w, bias, True, f"batch-major [{b},{u},{din}]->{dout}")
+    # gradients: dx through K4 on w^T (stride-0 view, per-unit x) or by the
+    # dense reduction (shared rows), dw and db plain, vs plain autograd
+    cases = [(256, 2160, 784, 64, "view", False),
+             (256, 2160, 64, 64, "units", True)]
+    cases += [(b, u, din, dout, "rows", dout > 1)
+              for b, u, din, dout in K4_DX_CASES]
+    for b, u, din, dout, how, act in cases:
+        x, w, bias = k4_inputs(b, u, din, dout, how != "units", gen, dev)
+        b, (u, din, dout) = x.shape[0], w.shape
+        leaf = (x if how == "units" else x[:, 0, :]).clone().requires_grad_()
         w.requires_grad_()
         bias.requires_grad_()
-        xin = leaf[:, None, :].expand(b, u, din) if s0 else leaf
+        xin = leaf[:, None, :].expand(b, u, din) if how != "units" else leaf
         cot = torch.randn((b, u, dout), generator=gen).to(dev)
         grads = []
-        for fn in (subnet_mlp.unit_affine, subnet_mlp.unit_affine_plain):
+        for fn, xx in ((subnet_mlp.unit_affine,
+                        leaf if how == "rows" else xin),
+                       (subnet_mlp.unit_affine_plain, xin)):
             for t in (leaf, w, bias):
                 t.grad = None
-            (fn(xin, w, bias, activate=act) * cot).sum().backward()
+            (fn(xx, w, bias, activate=act) * cot).sum().backward()
             grads.append([t.grad.clone() for t in (leaf, w, bias)])
         for name, g, p in zip(("dx", "dw", "db"), *grads):
             scale = float(p.abs().max())
-            if not torch.allclose(g, p, rtol=1e-4, atol=1e-5 * scale):
-                fail(f"K4 gradient {name} [{b},{u},{din}]->{dout}: max "
-                     f"|diff| {float((g - p).abs().max())} of {scale}")
+            if how == "rows" and name == "dx":
+                worst["unit_affine_dx"] = max(worst["unit_affine_dx"],
+                                              float((g - p).abs().max()))
+            if not torch.allclose(g, p, rtol=K4_GRAD_RTOL,
+                                  atol=K4_GRAD_ATOL * scale):
+                fail(f"K4 gradient {name} ({how}) [{b},{u},{din}]->{dout}: "
+                     f"max |diff| {float((g - p).abs().max())} of {scale}")
+        del grads
+    # the dense dx reduction: the same bits from run to run and for the
+    # first 33 rows of a batch of 257 as for a batch of 33
+    _, w, _ = k4_inputs(1, 2160, 784, 64, True, gen, dev)
+    dy = torch.randn((257, w.shape[0], w.shape[2]), generator=gen).to(dev)
+    first = subnet_mlp.unit_affine_dx_cuda(dy, w)
+    again = subnet_mlp.unit_affine_dx_cuda(dy, w)
+    part = subnet_mlp.unit_affine_dx_cuda(dy[:33].contiguous(), w)
+    if not (torch.equal(first, again) and torch.equal(first[:33], part)):
+        fail("K4 dense dx: bits differ between runs or batch sizes")
     torch.cuda.synchronize()
-    print(f"K4 vs plain: {len(K4_SHAPES)} f32 shapes max |diff| {worst:.3e}, "
-          "bf16 within 3e-2, gradients within rtol 1e-4, rows bit-identical "
-          f"across batch sizes ({time.perf_counter() - t0:.1f} s)",
+    print(f"K4 vs plain: {len(K4_SHAPES)} f32 shapes and "
+          f"{len(K4_DENSE_CASES)} shared-rows cases, max |diff| "
+          f"{ {k: f'{v:.3e}' for k, v in worst.items()} }; every route "
+          "equal to the reference kernel in f32 and bf16; stride-0, shared "
+          "rows and materialised x equal; bf16 within 3e-2, gradients within "
+          "rtol 1e-4 (dense dx too), rows and dense dx bit-identical across "
+          f"batch sizes and runs ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     return worst
 
@@ -685,6 +780,8 @@ def train_mnist(dev, smi: str, art_dir: Path) -> dict:
         if launches[name].get("unit_affine", 0) < 1:
             fail(f"mnist toolflow: K4 was not launched in {name} "
                  f"(counts {launches[name]})")
+        if launches[name].get("unit_affine_reference", 0):
+            fail(f"mnist toolflow: {name} reached K4's reference kernel")
         return res
 
     torch.cuda.reset_peak_memory_stats()
@@ -696,8 +793,8 @@ def train_mnist(dev, smi: str, art_dir: Path) -> dict:
     out["fold_s"] = out["compile_s"]
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["launches"] = launches
-    out["k4_launches"] = sum(c.get("unit_affine", 0)
-                             for c in launches.values())
+    out["k4_launches"] = {k: sum(c.get(k, 0) for c in launches.values())
+                          for k in K4_ROUTES}
     for st in ("pretrain", "retrain"):
         loss = flow.stages[st].metrics["final_loss"]
         out[f"{st}_final_loss"] = loss
@@ -709,9 +806,10 @@ def train_mnist(dev, smi: str, art_dir: Path) -> dict:
           f"{out['retrain_s']:.2f} s (3 steps each), fold {out['fold_s']:.3f}"
           f" s, losses {out['pretrain_final_loss']:.4f} / "
           f"{out['retrain_final_loss']:.4f}, peak memory "
-          f"{out['peak_bytes'] / 2**30:.2f} GiB, K4 launches "
-          f"{[launches[k]['unit_affine'] for k in launches]} [{smi}]",
-          flush=True)
+          f"{out['peak_bytes'] / 2**30:.2f} GiB (pretrain "
+          f"{out['peak_bytes_pretrain'] / 2**30:.3f} GiB), K4 launches by "
+          f"stage {[launches[k]['unit_affine'] for k in launches]}, by route "
+          f"{out['k4_launches']} [{smi}]", flush=True)
 
     xs = data.x_test[:8192]
     xt = torch.from_numpy(xs).to(dev)
@@ -742,7 +840,10 @@ def train_mnist(dev, smi: str, art_dir: Path) -> dict:
 def step_metrics(flow, cfg, data, dev, smi: str) -> dict:
     """Steady-state dense and sparse training steps of the flow's models:
     host ms per step (synchronized, 3 steps after a warm-up), K4 launches
-    per step, and the device idle share of one profiled step."""
+    and device time per step by route, and the device idle share of one
+    profiled step.  Fails unless a dense step runs the dense dx reduction
+    once for each K4 call on shared rows (first affine and bypass of every
+    mapping layer) and no step reaches K4's reference kernel."""
     import torch
     from repro_torch.core import assemble
     from repro_torch.kernels import build
@@ -769,18 +870,35 @@ def step_metrics(flow, cfg, data, dev, smi: str) -> dict:
             step()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / 3 * 1e3
-        k4 = build.launch_counts()["unit_affine"] / 3
+        counts = build.launch_counts()
+        k4 = {k: counts.get(k, 0) / 3 for k in K4_ROUTES}
+        want_dx = 2 * sum(not s.assemble for s in cfg.layers) \
+            if mode == "dense" else 0
+        if k4["unit_affine_dx"] != want_dx or \
+                counts.get("unit_affine_reference", 0):
+            fail(f"train step {mode}: K4 launches {counts}, expected "
+                 f"{want_dx} dense dx reductions a step and no reference "
+                 "kernel")
         wall, prof = profile(step, calls=1)
         busy = sum(sec for _, sec in prof.values())
-        k4_dev = sum(sec for key, (_, sec) in prof.items()
-                     if "unit_affine_kernel" in key)
+        k4_dev = {k: sum(sec for key, (_, sec) in prof.items()
+                         if K4_KERNELS[k] in key) for k in K4_ROUTES[1:]}
+        k4_dev["unit_affine"] = sum(k4_dev.values())
+        # where the rest of the device time goes: the five largest kernels
+        top = sorted(((sec, n, key[:60]) for key, (n, sec) in prof.items()),
+                     reverse=True)[:5]
         out[mode] = {"ms": ms, "k4_launches": k4, "profiled_wall_s": wall,
                      "device_busy_s": busy, "k4_device_s": k4_dev,
-                     "device_idle_share": 1.0 - busy / wall}
-        print(f"train step {mode}: {ms:.2f} ms/step, {k4:.0f} K4 launches"
-              f"/step, profiled step wall {wall * 1e3:.2f} ms, device busy "
-              f"{busy * 1e3:.2f} ms (K4 {k4_dev * 1e3:.2f} ms), idle share "
-              f"{1.0 - busy / wall:.3f} [{smi}]", flush=True)
+                     "device_idle_share": 1.0 - busy / wall,
+                     "top_kernels": [(key, n, sec * 1e3)
+                                     for sec, n, key in top]}
+        print(f"train step {mode}: {ms:.2f} ms/step, K4 launches/step "
+              f"{ {k: round(v, 2) for k, v in k4.items()} }, profiled step "
+              f"wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
+              f"(K4 ms { {k: round(v * 1e3, 3) for k, v in k4_dev.items()} }"
+              f"), idle share {1.0 - busy / wall:.3f}; largest kernels (name, "
+              f"launches, ms) {out[mode]['top_kernels']} [{smi}]",
+              flush=True)
     return out
 
 
@@ -919,7 +1037,7 @@ def main(seed: int) -> dict:
     rs = np.random.RandomState(seed + 1)
 
     # -- phase 3: each kernel against its plain version ----------------------
-    errs = {k: 0 for k in REPLACES if not k.startswith("flash_attention")}
+    errs = {k: 0 for k in REPLACES if k.startswith("lut_")}
     t3 = time.perf_counter()
     mnist_plan = nets["mnist"].compile_backend("pallas").plan
     for l, lm in enumerate(mnist_plan.meta["layers"]):
@@ -959,7 +1077,7 @@ def main(seed: int) -> dict:
           f"({time.perf_counter() - t3:.1f} s)", flush=True)
     if any(errs.values()):
         fail(f"a kernel disagrees with its plain version: {errs}")
-    errs["unit_affine"] = check_unit_affine(dev)
+    errs.update(check_unit_affine(dev))
     k5_errs = check_flash_attention(dev)
     errs["flash_attention"] = k5_errs["flash_attention"]
     errs["flash_attention_wgmma"] = k5_errs["flash_attention_wgmma"]
@@ -1046,26 +1164,62 @@ def main(seed: int) -> dict:
                             for t, a in shapes],
         "bytes": sum(a.numel() * 8 + t.numel() * 4 for t, a in shapes),
         "ops": 0})
-    # K4 on dense layer 0 of mnist: x [256, 784] broadcast over 2160 units
-    # (stride 0), w [2160, 784, 64]; the yardstick is one baddbmm on
-    # [U, B, din] with TF32 off.  Bytes: x, w and bias read once, y written
-    # once; operations: one FMA (2 flops) per (row, unit, din, dout) at the
-    # non-tensor f32 rate, the only unit that keeps the kernel's numbers.
+    # K4 at the toolflow's shapes, TF32 off.  Bytes: every input read once,
+    # the output written once; operations: one FMA (2 flops) per product at
+    # the non-tensor f32 rate, the only unit that keeps the kernels' numbers.
+    # The dense route on dense layer 0 of mnist: shared rows x [256, 784]
+    # for 2160 units, w [2160, 784, 64]; yardstick one baddbmm on [U, B, din]
+    # (x broadcast); K4's first kernel (the reference) timed beside it.
     torch.backends.cuda.matmul.allow_tf32 = False
     kb, ku, kdin, kdout = 256, 2160, 784, 64
-    x4, w4, b4 = k4_inputs(kb, ku, kdin, kdout, True,
-                           torch.Generator().manual_seed(seed), dev)
-    substr["unit_affine"] = "unit_affine_kernel"
+    gen4 = torch.Generator().manual_seed(seed)
+    x4, w4, b4 = k4_inputs(kb, ku, kdin, kdout, True, gen4, dev)
+    r4 = x4[:, 0, :]
+    substr.update(K4_KERNELS)
+    substr["reference"] = "unit_affine_reference_kernel"
     kernels.append({
-        "name": "unit_affine", "task": "mnist dense layer 0",
+        "name": "unit_affine_dense", "task": "mnist dense layer 0",
         "batch": kb, "calls": 10,
-        "kernel": lambda: subnet_mlp.unit_affine_cuda(x4, w4, b4),
-        "plain": lambda: subnet_mlp.unit_affine_plain(x4, w4, b4),
+        "kernel": lambda: subnet_mlp.unit_affine_cuda(r4, w4, b4),
+        "plain": lambda: subnet_mlp.unit_affine_plain(r4, w4, b4),
         "library": lambda: torch.baddbmm(b4[:, None, :], x4.transpose(0, 1),
                                          w4),
+        "reference": lambda: subnet_mlp.unit_affine_reference_cuda(
+            r4, w4, b4),
         "bytes": (kb * kdin + ku * kdin * kdout + ku * kdout
                   + kb * ku * kdout) * 4,
         "ops": 2 * kb * ku * kdin * kdout, "ops_per_s": F32_FLOPS_PER_S})
+    # The dense gradient on the same layer: dy [256, 2160, 64] -> dx
+    # [256, 784]; yardstick one einsum "bun,ukn->bk" (also the plain
+    # version).  The f32 scratch of partials is not in the bound.
+    dy4 = torch.randn((kb, ku, kdout), generator=gen4).to(dev)
+    kernels.append({
+        "name": "unit_affine_dx", "task": "mnist dense layer 0, dx",
+        "batch": kb, "calls": 10,
+        "kernel": lambda: subnet_mlp.unit_affine_dx_cuda(dy4, w4),
+        "plain": lambda: subnet_mlp.unit_affine_dx_plain(dy4, w4),
+        "library": lambda: torch.einsum("bun,ukn->bk", dy4, w4),
+        "bytes": (kb * ku * kdout + ku * kdin * kdout + kb * kdin) * 4,
+        "ops": 2 * kb * ku * kdin * kdout, "ops_per_s": F32_FLOPS_PER_S})
+    # The per-unit route on the sparse first affine: x [256, 2160, 6] ->
+    # [256, 2160, 64] with the fused ReLU; yardstick one baddbmm (no ReLU).
+    # Bound by writing y (141.6 MB).
+    sdin = 6
+    xs4, ws4, bs4 = k4_inputs(kb, ku, sdin, kdout, False, gen4, dev)
+    kernels.append({
+        "name": "unit_affine_units", "task": "mnist sparse first affine",
+        "batch": kb,
+        "kernel": lambda: subnet_mlp.unit_affine_cuda(xs4, ws4, bs4,
+                                                      activate=True),
+        "plain": lambda: subnet_mlp.unit_affine_plain(xs4, ws4, bs4,
+                                                      activate=True),
+        "library": lambda: torch.baddbmm(bs4[:, None, :],
+                                         xs4.transpose(0, 1), ws4),
+        "reference": lambda: subnet_mlp.unit_affine_reference_cuda(
+            xs4, ws4, bs4, activate=True),
+        "bytes": (kb * ku * sdin + ku * sdin * kdout + ku * kdout
+                  + kb * ku * kdout) * 4,
+        "ops": 2 * kb * ku * sdin * kdout, "ops_per_s": F32_FLOPS_PER_S})
     # K5 on one layer of gemma-2b's 1024-token prefill, bf16, causal, both
     # kernels on the same inputs; the yardstick is one
     # scaled_dot_product_attention call (timed here only, no module of the
@@ -1113,9 +1267,16 @@ def main(seed: int) -> dict:
             s for _, s in profile(k["library"])[1].values()) * 1e3 / 10
         k["bound_ms"], k["bound_by"] = bound(
             k["bytes"], k["ops"], k.pop("ops_per_s", INT_OPS_PER_S))
+        ref = k.pop("reference", None)
+        if ref is not None:
+            # K4's first kernel on the same inputs (report only)
+            k["reference_ms"] = per_call_ms(ref, calls=calls)
+            k["reference_device_ms"] = sum(
+                sec for key, (_, sec) in profile(ref)[1].items()
+                if substr["reference"] in key) * 1e3 / 10
         for fn in ("kernel", "plain", "library"):
             del k[fn]
-    del x4, w4, b4, qf, kf, vf
+    del x4, r4, w4, b4, dy4, xs4, ws4, bs4, qf, kf, vf
     report["k5_by_prompt"] = k5_by_prompt(dev, seed, smi)
 
     # the engine under the profiler: device busy share of a serving pass
@@ -1141,11 +1302,11 @@ def main(seed: int) -> dict:
         elif k["name"] == "flash_attention":
             # the f32 2-layer cut of the serving path
             k["launches"] = report["serve_gemma"]["k5_simt_launches_f32_cut"]
-        elif k["name"] == "unit_affine":
+        elif k["name"].startswith("unit_affine"):
             # the toolflow's main path: pretrain + retrain + compile
-            k["launches"] = report["toolflow_mnist"]["k4_launches"]
+            k["launches"] = report["toolflow_mnist"]["k4_launches"][k["name"]]
             k["launches_per_step"] = {
-                m: v["k4_launches"]
+                m: v["k4_launches"][k["name"]]
                 for m, v in report["toolflow_mnist"]["step"].items()}
         else:
             k["launches"] = serving[{"lut_cascade_streamed": "mnist/fused",
@@ -1156,11 +1317,15 @@ def main(seed: int) -> dict:
         k["route"] = "cuda"
         k["source"] = SOURCES[k["name"]]
         k["replaces"] = REPLACES[k["name"]]
+        ref = ("" if "reference_ms" not in k else
+               f", reference kernel {k['reference_ms']:.4f} ms (device "
+               f"{k['reference_device_ms']} ms)")
         print(f"time {k['name']} ({k['task']}, batch {k['batch']}): kernel "
               f"{k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
               f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms (device "
               f"{k['library_device_ms']} ms), bound "
-              f"{k['bound_ms']:.5f} ms ({k['bound_by']}) [{smi}]", flush=True)
+              f"{k['bound_ms']:.5f} ms ({k['bound_by']}){ref} [{smi}]",
+              flush=True)
     report["kernels"] = kernels
     return report
 

@@ -327,16 +327,11 @@ def params_from_reference(tree: dict, *, device=None) -> LUTNet:
 # ---------------------------------------------------------------------------
 
 def gather_layer_inputs(cfg: AssembleConfig, layer: Layer, l: int,
-                        h: torch.Tensor, *, dense: bool = False
-                        ) -> torch.Tensor:
-    """``[batch, prev] -> [batch, rows, fan_in]``.  Dense mode returns a
-    stride-0 broadcast ``[batch, rows, prev]`` view, never a copy."""
+                        h: torch.Tensor) -> torch.Tensor:
+    """``[batch, prev] -> [batch, rows, fan_in]``."""
     spec = cfg.layers[l]
     if spec.assemble:
         return h.reshape(h.shape[0], spec.units, spec.fan_in)
-    rows = cfg.mapping_rows(l)
-    if dense:
-        return h[:, None, :].expand(h.shape[0], rows, h.shape[-1])
     return h[:, layer.mapping.long()]
 
 
@@ -348,7 +343,10 @@ def apply(net: LUTNet, cfg: AssembleConfig, x: torch.Tensor, *,
     h = quant.fake_quant(net.in_q, cfg.input_quant_spec(), x)
     for l, spec in enumerate(cfg.layers):
         layer = net.layers[l]
-        xi = gather_layer_inputs(cfg, layer, l, h, dense=dense)
+        # dense mode: the shared rows themselves, so that K4 reads them once
+        # and its gradient is [batch, prev], never [batch, rows, prev]
+        xi = h if dense and not spec.assemble else \
+            gather_layer_inputs(cfg, layer, l, h)
         additive = spec.add_terms > 1
         out = subnet.apply_subnet(
             layer.subnet, cfg.subnet_spec(l, dense=dense), xi,

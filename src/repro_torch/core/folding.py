@@ -50,11 +50,11 @@ class FoldedNetwork:
         return int(sum(t.shape[0] * t.shape[1] for t in self.tables))
 
 
-def _enumerate(cfg: AssembleConfig, l: int, in_q, rows: int,
+def _enumerate(cfg: AssembleConfig, l: int, in_q,
                eval_chunk) -> torch.Tensor:
     """Run ``eval_chunk`` on the dequantized inputs of every address of
-    layer ``l``, broadcast over ``rows`` units; returns ``[rows, n_codes]``
-    int32."""
+    layer ``l``, as rows shared by the layer's units (``[chunk, F]``, K4's
+    dense route); returns ``[rows, n_codes]`` int32."""
     spec = cfg.layers[l]
     b_in = cfg.in_bits(l)
     n_codes = 2 ** (b_in * spec.fan_in)
@@ -67,8 +67,7 @@ def _enumerate(cfg: AssembleConfig, l: int, in_q, rows: int,
         x = quant.dequantize_codes(in_q, in_spec,
                                    quant.unpack_address(addr, b_in,
                                                         spec.fan_in))
-        pieces.append(eval_chunk(x[:, None, :].expand(x.shape[0], rows,
-                                                      spec.fan_in)))
+        pieces.append(eval_chunk(x))
     return torch.cat(pieces, dim=0).t().contiguous().to(torch.int32)
 
 
@@ -87,7 +86,7 @@ def fold_layer(net: LUTNet, cfg: AssembleConfig, l: int) -> torch.Tensor:
                                   activation=cfg.has_activation(l))
         return quant.quantize_codes(layer.out_q, out_spec, out[..., 0])
 
-    return _enumerate(cfg, l, _in_q(net, l), cfg.layers[l].units, eval_chunk)
+    return _enumerate(cfg, l, _in_q(net, l), eval_chunk)
 
 
 @torch.no_grad()
@@ -103,7 +102,7 @@ def _fold_branch(net: LUTNet, cfg: AssembleConfig, l: int) -> torch.Tensor:
                                   activation=False)
         return quant.quantize_codes(layer.add_q, add_spec, out[..., 0])
 
-    return _enumerate(cfg, l, _in_q(net, l), cfg.mapping_rows(l), eval_chunk)
+    return _enumerate(cfg, l, _in_q(net, l), eval_chunk)
 
 
 @torch.no_grad()

@@ -121,7 +121,11 @@ def expand_poly(spec: SubnetSpec, x: torch.Tensor) -> torch.Tensor:
 def apply_subnet(sn: Subnet, spec: SubnetSpec, x: torch.Tensor, *,
                  activation: bool, training: bool = False) -> torch.Tensor:
     """Run the batched subnets: x ``[batch, units, F]`` (dequantized inputs)
-    -> ``[batch, units, out_dim]`` pre-quantization outputs.
+    or rows that every unit reads, ``[batch, F]`` (dense mode, the fold's
+    enumeration) -> ``[batch, units, out_dim]`` pre-quantization outputs.
+    Shared rows reach K4 as they are, in the first affine and in a bypass
+    that reads the subnet input, so no ``[batch, units, F]`` tensor or
+    gradient is built.
 
     When ``training`` the BN running statistics in ``sn.bn`` are refreshed.
     ``activation`` applies ReLU to the output; hidden stages always do.  A

@@ -1,10 +1,10 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
 Each source under ``csrc/`` (``lut_kernels.cu``: K1-K3, ``subnet_mlp.cu``:
-K4, ``flash_attention.cu`` and ``flash_attention_wgmma.cu``: the two K5
-kernels) has a plain C interface, so it compiles in
-seconds with ``nvcc`` straight into its own shared library (no PyTorch
-headers) and loads with ``ctypes``.
+K4's routes and its reference kernel, ``flash_attention.cu`` and
+``flash_attention_wgmma.cu``: the two K5 kernels) has a plain C interface,
+so it compiles in seconds with ``nvcc`` straight into its own shared
+library (no PyTorch headers) and loads with ``ctypes``.
 The libraries are built at first use into ``build/repro_torch`` at the
 repository root, each named by a hash of its source and the flags, so an
 edited source is rebuilt and an unchanged one is reused.  Missing libraries
@@ -140,6 +140,11 @@ _SIGNATURES = {
     "subnet_mlp": {
         "unit_affine_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
                                _L, _L, _L, _I, _I, _P),
+        "unit_affine_dx_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                                  _L, _L, _L, _I, _P),
+        "unit_affine_dx_chunks": (_I,),
+        "unit_affine_reference_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _L,
+                                         _L, _L, _L, _L, _L, _I, _I, _P),
     },
     "flash_attention": {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

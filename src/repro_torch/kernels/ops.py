@@ -12,9 +12,10 @@ that fails to build or launch raises.
   K1 or K2 by the plan's tuning and the shared-memory fit, or the plain
   cascade where the plan pins ``impl="xla"`` (as in the reference, where
   ``"xla"`` is not a kernel).
-* :func:`unit_affine` -- one affine stage of the per-unit MLPs: K4 on CUDA
-  tensors, the plain einsum on CPU tensors (``impl=None``); ``"einsum"``
-  pins the plain version, ``"pallas"`` pins K4.
+* :func:`unit_affine` -- one affine stage of the per-unit MLPs (x per unit,
+  or rows shared by every unit): K4 on CUDA tensors, the plain einsum on
+  CPU tensors (``impl=None``); ``"einsum"`` pins the plain version,
+  ``"pallas"`` pins K4.
 * :func:`flash_attention` -- blockwise attention: K5 on CUDA tensors, the
   plain ``mha_ref`` on CPU tensors (``impl=None``); ``"ref"`` pins the
   plain version, ``"pallas"`` pins K5.
@@ -82,10 +83,10 @@ def lut_cascade(codes: torch.Tensor, amat, tables: torch.Tensor, *,
 def unit_affine(x: torch.Tensor, w: torch.Tensor,
                 b: Optional[torch.Tensor] = None, *, activate: bool = False,
                 impl: Optional[str] = None) -> torch.Tensor:
-    """x ``[B, U, din]``, w ``[U, din, dout]``, b ``[U, dout]`` ->
-    ``[B, U, dout]``.  ``impl=None`` dispatches by device (K4 on CUDA, plain
-    on the CPU); ``"einsum"`` always runs the plain version; ``"pallas"``
-    is K4 and raises on the CPU."""
+    """x ``[B, U, din]`` or shared rows ``[B, din]``, w ``[U, din, dout]``,
+    b ``[U, dout]`` -> ``[B, U, dout]``.  ``impl=None`` dispatches by
+    device (K4 on CUDA, plain on the CPU); ``"einsum"`` always runs the
+    plain version; ``"pallas"`` is K4 and raises on the CPU."""
     if impl is None:
         return subnet_mlp.unit_affine(x, w, b, activate=activate)
     if impl == "einsum":

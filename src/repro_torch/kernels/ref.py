@@ -25,9 +25,13 @@ def lut_lookup_onehot_ref(table: torch.Tensor,
 
 def unit_affine_ref(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                     *, activate: bool = False) -> torch.Tensor:
-    """One affine stage of the per-unit MLPs: x ``[batch, units, din]``, w
-    ``[units, din, dout]``, b ``[units, dout]`` (or None) -> ``[batch,
-    units, dout]``, ReLU'd when ``activate``."""
+    """One affine stage of the per-unit MLPs: x ``[batch, units, din]`` or
+    rows shared by every unit ``[batch, din]``, w ``[units, din, dout]``, b
+    ``[units, dout]`` (or None) -> ``[batch, units, dout]``, ReLU'd when
+    ``activate``.  Shared rows run as their stride-0 broadcast, so both
+    forms give the same bits."""
+    if x.dim() == 2:
+        x = x[:, None, :].expand(x.shape[0], w.shape[0], x.shape[1])
     y = torch.einsum("bui,uio->buo", x, w)
     if b is not None:
         y = y + b

@@ -167,6 +167,108 @@ def test_unit_affine_bf16_and_gradient(cuda):
                                    atol=1e-5 * float(p.abs().max()))
 
 
+# ragged K4 cases against the reference kernel: (b, u, din, dout, layout)
+# with layout "rows" (shared rows [B, din]), "view" (stride-0 [B, U, din]),
+# "units" (x per unit), "wT" (per unit, w given as a transposed view) or
+# "bmajor" (per unit, x a permute of [din, U, B]: with B 2 or 6 odd units
+# start off a 16-byte boundary)
+K4_EXACT_CASES = [(1, 7, 6, 64, "units"), (33, 60, 784, 64, "rows"),
+                  (257, 21, 64, 1, "units"), (130, 9, 64, 784, "units"),
+                  (64, 100, 12, 16, "units"), (5, 3, 40, 50, "view"),
+                  (300, 140, 360, 64, "rows"), (200, 330, 784, 1, "rows"),
+                  (65, 13, 6, 64, "view"), (70, 11, 64, 6, "wT"),
+                  (129, 5, 1, 64, "wT"), (17, 3, 70, 70, "wT"),
+                  (2, 2, 40, 64, "bmajor"), (6, 2, 40, 64, "bmajor"),
+                  (4, 3, 20, 64, "bmajor")]
+
+
+def _k4(b, u, din, dout, layout, dtype, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    shared = layout in ("rows", "view")
+    if layout == "bmajor":     # per-unit x, batch axis contiguous
+        x = torch.rand((din, u, b), generator=gen).permute(2, 1, 0)
+    else:
+        x = torch.rand((b, din) if shared else (b, u, din), generator=gen)
+    if layout == "wT":
+        w = (torch.randn((u, dout, din), generator=gen)
+             * (2.0 / din) ** 0.5).transpose(1, 2)
+    else:
+        w = torch.randn((u, din, dout), generator=gen) * (2.0 / din) ** 0.5
+    bias = torch.randn((u, dout), generator=gen) * 0.1
+    x, w, bias = (t.to(dev, dtype) for t in (x, w, bias))
+    if layout == "bmajor":
+        assert x.stride() == (1, b, u * b)
+    if layout == "view":
+        x = x[:, None, :].expand(b, u, din)
+    return x, w, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,u,din,dout,layout", K4_EXACT_CASES)
+def test_unit_affine_equals_reference_kernel_and_counts_by_route(
+        b, u, din, dout, layout, dtype, cuda):
+    x, w, bias = _k4(b, u, din, dout, layout, dtype, cuda, b + din)
+    route = "dense" if layout in ("rows", "view") else "units"
+    assert subnet_mlp.route(x) == route
+    for act, bb in ((False, None), (True, bias)):
+        build.reset_counters()
+        got = subnet_mlp.unit_affine_cuda(x, w, bb, activate=act)
+        want = subnet_mlp.unit_affine_reference_cuda(x, w, bb, activate=act)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        assert counts[f"unit_affine_{route}"] == 1
+        assert counts["unit_affine"] == 1
+        assert counts["unit_affine_reference"] == 1
+        assert got.dtype == dtype and got.shape == (b, u, dout)
+        assert torch.equal(got, want)
+
+
+def test_unit_affine_layouts_give_equal_bits(cuda):
+    """The same rows as a stride-0 view, as shared rows and as a
+    materialised [B, U, din] copy: the bits the fold relies on."""
+    for b, u, din, dout in ((64, 300, 6, 64), (256, 90, 784, 64),
+                            (33, 200, 360, 1)):
+        x, w, bias = _k4(b, u, din, dout, "rows", torch.float32, cuda, din)
+        view = x[:, None, :].expand(b, u, din)
+        outs = [subnet_mlp.unit_affine_cuda(t, w, bias, activate=True)
+                for t in (x, view, view.contiguous())]
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("b,u,din,dout", [(256, 150, 784, 64),
+                                          (40, 9, 300, 64),
+                                          (257, 70, 360, 1)])
+def test_unit_affine_dense_dx_reduction(b, u, din, dout, cuda):
+    """dx [B, din] of shared rows by the reduction kernel against plain
+    autograd through the broadcast (rtol 1e-4, atol 1e-5 * scale), bit-equal
+    between two runs and between a batch and its first rows; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, bias = _k4(b, u, din, dout, "rows", torch.float32, cuda, b)
+    cot = torch.randn((b, u, dout), generator=torch.Generator().manual_seed(
+        1)).to(cuda)
+    leaf = x.clone().requires_grad_()
+    build.reset_counters()
+    y = subnet_mlp.unit_affine(leaf, w, bias, activate=True)
+    (y * cot).sum().backward()
+    assert build.launch_counts()["unit_affine_dx"] == 1
+    got = leaf.grad
+    assert got.shape == (b, din)
+    leaf.grad = None
+    (subnet_mlp.unit_affine_plain(leaf[:, None, :].expand(b, u, din), w,
+                                  bias, activate=True) * cot).sum().backward()
+    want = leaf.grad
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-5 * float(want.abs().max()))
+    dy = torch.where(subnet_mlp.unit_affine_plain(x, w, bias) > 0, cot, 0.0)
+    again = subnet_mlp.unit_affine_dx_cuda(dy, w)
+    part = subnet_mlp.unit_affine_dx_cuda(dy[:33].contiguous(), w)
+    torch.cuda.synchronize()
+    assert torch.equal(again, subnet_mlp.unit_affine_dx_cuda(dy, w))
+    assert torch.equal(part, again[:33])
+    torch.testing.assert_close(again.float(), subnet_mlp.unit_affine_dx_plain(
+        dy, w), rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+
+
 # the reference test's cases (tests/test_kernels.py), D = 32
 FLASH_CASES = [(hq, hkv, sq, skv, causal, window)
                for hq, hkv in ((4, 4), (4, 2), (8, 1))
