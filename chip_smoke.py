@@ -8,8 +8,9 @@ each against its plain PyTorch version on the card at the main paths'
 shapes, and drives both main paths:
 
 * serving (slice 1): full-width ``mnist`` (fused backend, streamed kernel
-  K2) and full ``nid`` (fused backend, resident kernel K1; per-layer
-  ``pallas`` backend, lookup kernel K3) from a saved and reloaded artifact
+  K2, split over a thread-block cluster since slice 6) and full ``nid``
+  (fused backend, resident kernel K1; per-layer ``pallas`` backend, lookup
+  kernel K3) from a saved and reloaded artifact
   through ``LUTEngine``, with random tables drawn with
   ``numpy.random.RandomState(seed)``;
 * the toolflow (slices 2 and 5): full-width ``mnist`` pre-trained dense,
@@ -22,8 +23,8 @@ shapes, and drives both main paths:
   ``torch.Generator("cuda").manual_seed(seed)``) serving six requests on
   four slots through ``ServeEngine``, every layer's prefill attention
   through K5's wgmma kernel (slice 4); decode against prefill on the card,
-  and a 2-layer f32 cut of it (K5's SIMT kernel) on the card against the
-  CPU.
+  and a 2-layer f32 cut of it (K5's TF32 kernel, slice 6) on the card
+  against the CPU.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
@@ -50,6 +51,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor f32 rate, used for int32
 F32_FLOPS_PER_S = 67e12       # H100 SXM non-tensor f32 FMA rate (K4's unit)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 SOURCES = {
     "lut_cascade_resident": "src/repro_torch/kernels/csrc/lut_kernels.cu",
     "lut_cascade_streamed": "src/repro_torch/kernels/csrc/lut_kernels.cu",
@@ -441,15 +443,16 @@ K5_WGMMA_CASES = ([(1, 8, 1, s, s, 256, None, 0) for s in GEMMA_PROMPTS]
 
 
 def check_flash_attention(dev) -> dict:
-    """K5's two kernels against the plain version.  The SIMT kernel: the
+    """K5's two kernels against the plain version.  The TF32 kernel: the
     reference test's 15 cases (f32, D 32), gemma-2b's prefill shapes
     ([1, 8, S, 256] q on [1, 1, S, 256] k/v, causal, S in 1024 / 130 / 7)
-    in f32 and bf16, a window of 256 at S 1024, and q as the strided view
-    the model passes.  The wgmma kernel: the cases of ``K5_WGMMA_CASES``,
+    in f32 and bf16, a window of 256 at S 1024, q as the strided view the
+    model passes, and the head dims 8, 16 and 96 in f32 and bf16 (the smoke
+    configs' 16 among them).  The wgmma kernel: the cases of ``K5_WGMMA_CASES``,
     with q contiguous and as the model's strided view.
     Also reports, as information, what rounding p once to bf16 instead of
     splitting it would do on gemma's 1024 case.  Returns the max |diff| of
-    each kernel (the SIMT kernel's f32 checks); fails on any
+    each kernel (the TF32 kernel's f32 checks); fails on any
     disagreement."""
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -477,20 +480,26 @@ def check_flash_attention(dev) -> dict:
         if not ok:
             fail(f"K5 {fn.__name__} {label} {q.dtype}: max |diff| {err}")
 
-    simt = fa.flash_attention_simt_cuda
+    tf32 = fa.flash_attention_tf32_cuda
     for hq, hkv, sq, skv, causal, window in K5_CASES:
-        hold(simt, *k5_inputs(2, hq, hkv, sq, skv, 32, hq + sq, dev),
+        hold(tf32, *k5_inputs(2, hq, hkv, sq, skv, 32, hq + sq, dev),
              f"[{hq},{hkv},{sq},{skv},{causal},{window}]", causal=causal,
              window=window, q_offset=skv - sq)
     for s in (1024, 130, 7):
         q, k, v = k5_inputs(1, 8, 1, s, s, 256, s, dev)
-        hold(simt, q, k, v, f"gemma S {s}")
-        hold(simt, *(t.bfloat16() for t in (q, k, v)), f"gemma S {s}")
+        hold(tf32, q, k, v, f"gemma S {s}")
+        hold(tf32, *(t.bfloat16() for t in (q, k, v)), f"gemma S {s}")
         qt = q.transpose(1, 2).contiguous().transpose(1, 2)
-        hold(simt, qt, k, v, f"gemma S {s} strided q")
-    hold(simt, *k5_inputs(1, 8, 1, 1024, 1024, 256, 3, dev), "window 256",
+        hold(tf32, qt, k, v, f"gemma S {s} strided q")
+    hold(tf32, *k5_inputs(1, 8, 1, 1024, 1024, 256, 3, dev), "window 256",
          window=256)
-    n_simt = n
+    for d in (8, 16, 96):
+        q, k, v = k5_inputs(2, 4, 2, 300, 300, d, d, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            hold(tf32, *(t.to(dt) for t in (q, k, v)), f"D {d}")
+            hold(tf32, *(t.to(dt) for t in (q[:, :, -1:], k, v)),
+                 f"D {d} Sq 1", q_offset=299)
+    n_tf32 = n
 
     wgmma = fa.flash_attention_wgmma_cuda
     for b, hq, hkv, sq, skv, d, window, q_offset in K5_WGMMA_CASES:
@@ -515,9 +524,9 @@ def check_flash_attention(dev) -> dict:
             "max_diff_over_tolerance": float((diff / tol).max()),
             "elements_outside_tolerance": int((diff > tol).sum())}
     torch.cuda.synchronize()
-    print(f"K5 vs plain: {n_simt} checks of the SIMT kernel, f32 max |diff| "
+    print(f"K5 vs plain: {n_tf32} checks of the TF32 kernel, f32 max |diff| "
           f"{worst:.3e} (tolerance {K5_F32_TOL}), bf16 max |diff| "
-          f"{worst_bf16:.3e}; {n - n_simt} checks of the wgmma kernel, max "
+          f"{worst_bf16:.3e}; {n - n_tf32} checks of the wgmma kernel, max "
           f"|diff| {worst_wgmma:.3e} (rtol {K5_BF16_RTOL}, atol "
           f"{K5_BF16_ATOL}) ({time.perf_counter() - t0:.1f} s)", flush=True)
     print(f"K5 wgmma on gemma S 1024, p split vs p rounded once to bf16 "
@@ -531,10 +540,10 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
     random weights) serves six requests on four slots through
     ``ServeEngine`` with the launch counts set to 0 just before; fails
     unless K5's wgmma kernel launched exactly once per layer per prefill
-    (108) and its SIMT kernel never, every request got its 16 tokens in
+    (108) and its TF32 kernel never, every request got its 16 tokens in
     range, every logit was finite, decode matches prefill on the card (in
     bf16 within a sanity bound with the same argmax, and in f32 on a
-    2-layer cut at the reference's 2e-4, where the SIMT kernel runs once
+    2-layer cut at the reference's 2e-4, where the TF32 kernel runs once
     per layer), and that 2-layer cut agrees with the CPU.  Returns the
     serving numbers."""
     import dataclasses
@@ -590,7 +599,7 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
     if out["k5_launches"] != want or counts.get("flash_attention", 0):
         fail(f"gemma-2b serve: K5's wgmma kernel launched "
              f"{out['k5_launches']} times, not {want} (one per layer per "
-             "prefill, none in decode), and its SIMT kernel "
+             "prefill, none in decode), and its TF32 kernel "
              f"{counts.get('flash_attention', 0)} times, not 0")
     if len(done) != len(reqs) or any(
             len(r.out_tokens) != GEMMA_NEW_TOKENS
@@ -681,10 +690,10 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
     prompt = torch.from_numpy(reqs[0].prompt[None, :130])
     build.reset_counters()
     got, _ = lm.prefill(card, cfg2, prompt.to(dev), 2048)
-    out["k5_simt_launches_f32_cut"] = build.launch_counts().get(
+    out["k5_tf32_launches_f32_cut"] = build.launch_counts().get(
         "flash_attention", 0)
-    if out["k5_simt_launches_f32_cut"] != 2:
-        fail("gemma-2b card vs CPU: K5's SIMT kernel did not run once per "
+    if out["k5_tf32_launches_f32_cut"] != 2:
+        fail("gemma-2b card vs CPU: K5's TF32 kernel did not run once per "
              "layer")
     # decode matches prefill on the card in f32, n = 129
     _, c = lm.prefill(card, cfg2, prompt[:, :129].to(dev), 2048)
@@ -735,6 +744,53 @@ def k5_by_prompt(dev, seed: int, smi: str) -> dict:
           f"{ {s: (round(v['ms'], 4), round(v['device_ms'], 4)) for s, v in out.items()} } "
           f"[{smi}]", flush=True)
     return out
+
+
+def k5_tf32_d16(dev, seed: int, smi: str) -> dict:
+    """K5's TF32 kernel on bf16 at head dim 16 (the smoke configs'), on
+    gemma-2b's heads and a 1024-token causal prefill: ms by CUDA events,
+    device ms from the profiler, the bf16 bound and one SDPA call."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = k5_inputs(1, 8, 1, 1024, 1024, 16, seed + 16, dev,
+                        torch.bfloat16)
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    if fa.route(q, k, v) != fa.TF32:
+        fail("K5: bf16 at head dim 16 does not route to the TF32 kernel")
+    fn = lambda: fa.flash_attention_tf32_cuda(q, k, v)  # noqa: E731
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    dev_s = sum(sec for key, (_, sec) in profile(fn)[1].items()
+                if "flash_attention_tf32_kernel" in key)
+    ops = 4 * 8 * 16 * 1024 * 1025 // 2
+    byts = (2 * q.numel() + k.numel() + v.numel()) * 2
+    out = {"shape": "q [1, 8, 1024, 16] strided, k/v [1, 1, 1024, 16], bf16",
+           "ms": per_call_ms(fn), "device_ms": dev_s * 1e3 / 10,
+           "library_ms": per_call_ms(sdpa),
+           "library_device_ms": sum(
+               sec for _, sec in profile(sdpa)[1].values()) * 1e3 / 10}
+    out["bound_ms"], out["bound_by"] = bound(byts, ops, BF16_FLOPS_PER_S)
+    print(f"time flash_attention (TF32 kernel, bf16, head dim 16): "
+          f"{ {k: (round(v, 5) if isinstance(v, float) else v) for k, v in out.items()} } "
+          f"[{smi}]", flush=True)
+    return out
+
+
+def k2_plan(ops, unit_tile: int, batch: int) -> dict:
+    """K2's cluster plan at these operands: cluster size, rows a tile,
+    route, bytes a CTA, clusters resident at once, clusters launched."""
+    from repro_torch.kernels import lut_cascade as lc
+    isz = ops.tables.element_size()
+    cp = lc.plan_cluster(ops.layers, isz, unit_tile=unit_tile,
+                         max_entries=ops.tables.shape[1])
+    fit = lc.max_active_clusters(0, isz, lc.act_itemsize(ops.layers),
+                                 bool(cp.ring_units), cp.cluster,
+                                 cp.smem_bytes)
+    return {"cluster": cp.cluster, "rows": cp.rows, "route": cp.route,
+            "ring_units": cp.ring_units, "smem_bytes": cp.smem_bytes,
+            "max_active_clusters": fit,
+            "clusters_launched": min(-(-batch // cp.rows), fit)}
 
 
 def finite_net(net) -> bool:
@@ -1131,15 +1187,18 @@ def main(seed: int) -> dict:
         codes = torch.from_numpy(rs.randint(
             0, 2 ** layers[0][5], size=(b, layers[0][0])).astype(np.int32)
         ).to(dev)
+        # each lambda binds this iteration's operands (a late-bound
+        # closure would time K2 on nid's operands, the loop's last)
         if kname == "lut_cascade_streamed":
             ut = plan.meta["tuning"]["unit_tile"]
-            kern = lambda: lut_cascade.lut_cascade_streamed(  # noqa: E731
-                codes, ops, unit_tile=ut)
+            kern = lambda c=codes, o=ops, u=ut: (  # noqa: E731
+                lut_cascade.lut_cascade_streamed(c, o, unit_tile=u))
+            report["k2_plan"] = k2_plan(ops, ut, b)
         else:
-            kern = lambda: lut_cascade.lut_cascade_resident(  # noqa: E731
-                codes, ops)
-        plain = lambda: lut_cascade.lut_cascade_plain(  # noqa: E731
-            codes, tables, maps, layers)
+            kern = lambda c=codes, o=ops: (  # noqa: E731
+                lut_cascade.lut_cascade_resident(c, o))
+        plain = lambda c=codes, t=tables, m=maps, l=layers: (  # noqa: E731
+            lut_cascade.lut_cascade_plain(c, t, m, l))
         byts, n_ops = cascade_work(layers, b, tables.numel()
                                    * tables.element_size(),
                                    ops.map_words * 4)
@@ -1220,38 +1279,46 @@ def main(seed: int) -> dict:
         "bytes": (kb * ku * sdin + ku * sdin * kdout + ku * kdout
                   + kb * ku * kdout) * 4,
         "ops": 2 * kb * ku * sdin * kdout, "ops_per_s": F32_FLOPS_PER_S})
-    # K5 on one layer of gemma-2b's 1024-token prefill, bf16, causal, both
-    # kernels on the same inputs; the yardstick is one
-    # scaled_dot_product_attention call (timed here only, no module of the
-    # port calls it).  Bytes: q, k, v read once, o written once; operations:
-    # 4 * Hq * D per unmasked (q, k) pair, S(S+1)/2 of them, at the bf16
-    # tensor-core rate (the wgmma kernel's split p does 1.5x that work; the
-    # bound counts the function's).
+    # K5 on one layer of gemma-2b's 1024-token prefill, causal, q in the
+    # layout _project_qkv passes ([B, Hq, S, D] with row stride Hq*D); the
+    # yardstick is one scaled_dot_product_attention call on the same inputs
+    # (timed here only, no module of the port calls it).  Bytes: q, k, v
+    # read once, o written once; operations: 4 * Hq * D per unmasked (q, k)
+    # pair, S(S+1)/2 of them.  The wgmma route on bf16 at the bf16
+    # tensor-core rate (its split p does 1.5x that work; the bound counts
+    # the function's).  The TF32 route on what route() sends it, f32, at the
+    # TF32 tensor-core rate (its split operands do 3x that work); its row
+    # also gives the f32 FMA bound and the byte floor.
     fs, fhq, fd = 1024, 8, 256
     qf, kf, vf = k5_inputs(1, fhq, 1, fs, fs, fd, seed, dev, torch.bfloat16)
-    # q in the layout _project_qkv passes: [B, Hq, S, D] with row stride Hq*D
     qf = qf.transpose(1, 2).contiguous().transpose(1, 2)
-    k5_work = {"bytes": (2 * qf.numel() + kf.numel() + vf.numel())
-               * qf.element_size(),
-               "ops": 4 * fhq * fd * fs * (fs + 1) // 2,
-               "ops_per_s": BF16_FLOPS_PER_S,
-               "plain": lambda: flash_attention.flash_attention_plain(
-                   qf, kf, vf),
-               "library": lambda: torch.nn.functional.
-               scaled_dot_product_attention(qf, kf, vf, is_causal=True,
-                                            enable_gqa=True)}
-    substr["flash_attention"] = "flash_attention_kernel"
+    q32, k32, v32 = (t.float() for t in (qf, kf, vf))
+    q32 = q32.transpose(1, 2).contiguous().transpose(1, 2)
+    k5_ops = 4 * fhq * fd * fs * (fs + 1) // 2
+
+    def k5_work(q, k, v, ops_per_s):
+        return {"bytes": (2 * q.numel() + k.numel() + v.numel())
+                * q.element_size(), "ops": k5_ops, "ops_per_s": ops_per_s,
+                "plain": lambda: flash_attention.flash_attention_plain(
+                    q, k, v),
+                "library": lambda: torch.nn.functional.
+                scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)}
+    substr["flash_attention"] = "flash_attention_tf32_kernel"
     substr["flash_attention_wgmma"] = "flash_attention_wgmma_kernel"
     kernels.append({
-        "name": "flash_attention", "task": "gemma-2b prefill layer, bf16",
+        "name": "flash_attention", "task": "gemma-2b prefill layer, f32",
         "batch": fs,
-        "kernel": lambda: flash_attention.flash_attention_simt_cuda(
-            qf, kf, vf), **k5_work})
+        "kernel": lambda: flash_attention.flash_attention_tf32_cuda(
+            q32, k32, v32), **k5_work(q32, k32, v32, TF32_FLOPS_PER_S),
+        "bound_fma_ms": k5_ops / F32_FLOPS_PER_S * 1e3,
+        "byte_floor_ms": (2 * q32.numel() + k32.numel() + v32.numel()) * 4
+        / HBM_BYTES_PER_S * 1e3})
     kernels.append({
         "name": "flash_attention_wgmma",
         "task": "gemma-2b prefill layer, bf16", "batch": fs,
         "kernel": lambda: flash_attention.flash_attention_wgmma_cuda(
-            qf, kf, vf), **k5_work})
+            qf, kf, vf), **k5_work(qf, kf, vf, BF16_FLOPS_PER_S)})
     for k in kernels:
         calls = k.pop("calls", 40)
         k["ms"] = per_call_ms(k["kernel"], calls=calls)
@@ -1263,8 +1330,10 @@ def main(seed: int) -> dict:
         k["device_ms"] = (sum(s for _, s in hits) * 1e3 / 10 if hits
                           else None)
         # the library call's own device time: every kernel it launches
+        lib_prof = {} if k["library"] is None else profile(k["library"])[1]
         k["library_device_ms"] = None if k["library"] is None else sum(
-            s for _, s in profile(k["library"])[1].values()) * 1e3 / 10
+            s for _, s in lib_prof.values()) * 1e3 / 10
+        k["library_kernels"] = sorted(key[:120] for key in lib_prof)
         k["bound_ms"], k["bound_by"] = bound(
             k["bytes"], k["ops"], k.pop("ops_per_s", INT_OPS_PER_S))
         ref = k.pop("reference", None)
@@ -1276,8 +1345,9 @@ def main(seed: int) -> dict:
                 if substr["reference"] in key) * 1e3 / 10
         for fn in ("kernel", "plain", "library"):
             del k[fn]
-    del x4, r4, w4, b4, dy4, xs4, ws4, bs4, qf, kf, vf
+    del x4, r4, w4, b4, dy4, xs4, ws4, bs4, qf, kf, vf, q32, k32, v32
     report["k5_by_prompt"] = k5_by_prompt(dev, seed, smi)
+    report["k5_tf32_d16"] = k5_tf32_d16(dev, seed, smi)
 
     # the engine under the profiler: device busy share of a serving pass
     for key, (task, backend) in (("mnist/fused", ("mnist", "fused")),
@@ -1301,7 +1371,7 @@ def main(seed: int) -> dict:
             k["launches"] = report["serve_gemma"]["k5_launches"]
         elif k["name"] == "flash_attention":
             # the f32 2-layer cut of the serving path
-            k["launches"] = report["serve_gemma"]["k5_simt_launches_f32_cut"]
+            k["launches"] = report["serve_gemma"]["k5_tf32_launches_f32_cut"]
         elif k["name"].startswith("unit_affine"):
             # the toolflow's main path: pretrain + retrain + compile
             k["launches"] = report["toolflow_mnist"]["k4_launches"][k["name"]]
@@ -1320,11 +1390,16 @@ def main(seed: int) -> dict:
         ref = ("" if "reference_ms" not in k else
                f", reference kernel {k['reference_ms']:.4f} ms (device "
                f"{k['reference_device_ms']} ms)")
+        extra = {key: k[key] for key in ("bound_fma_ms", "byte_floor_ms",
+                                         "library_kernels") if key in k}
+        if k["name"] == "lut_cascade_streamed":
+            extra["plan"] = report["k2_plan"]
         print(f"time {k['name']} ({k['task']}, batch {k['batch']}): kernel "
               f"{k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
               f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms (device "
               f"{k['library_device_ms']} ms), bound "
-              f"{k['bound_ms']:.5f} ms ({k['bound_by']}){ref} [{smi}]",
+              f"{k['bound_ms']:.5f} ms ({k['bound_by']}){ref} {extra} "
+              f"[{smi}]",
               flush=True)
     report["kernels"] = kernels
     return report

@@ -135,7 +135,9 @@ _SIGNATURES = {
         "lut_cascade_resident_launch": (_P, _P, _I, _P, _P, _I, _I, _I, _I,
                                         _I, _I, _L, _L, _I, _P, _P),
         "lut_cascade_streamed_launch": (_P, _P, _I, _P, _P, _I, _I, _I, _I,
-                                        _I, _I, _I, _I, _I, _P, _P),
+                                        _I, _I, _I, _I, _I, _I, _I, _L, _P,
+                                        _P),
+        "lut_cascade_streamed_max_clusters": (_I, _I, _I, _I, _L, _P),
     },
     "subnet_mlp": {
         "unit_affine_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
@@ -149,7 +151,7 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
-                                   _I, _I, _F, _I, _P),
+                                   _I, _I, _F, _I, _I, _I, _P),
     },
     "flash_attention_wgmma": {
         "flash_attention_wgmma_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -4,7 +4,7 @@
 //   K5 flash_attention_wgmma_kernel  <- repro/kernels/flash_attention.py
 //                                       flash_attention_pallas, _flash_kernel
 //
-// It computes what flash_attention_kernel (flash_attention.cu) computes,
+// It computes what flash_attention_tf32_kernel (flash_attention.cu) computes,
 // for bf16 q/k/v with D in {64, 128, 256} whose bases are 16 B aligned
 // and whose strides on the first three axes are multiples of 16 B (the
 // route in kernels/flash_attention.py sends everything else there):
@@ -55,7 +55,7 @@
 // the overlap changes no bit; without it QK^T, the softmax and PV would run
 // one after another, with the tensor cores idle through the softmax
 // (benchmarks/torch_k5_phases.py times the phases of one tile).
-// KV tiles masked for the whole q tile are never loaded, as in the SIMT
+// KV tiles masked for the whole q tile are never loaded, as in the TF32
 // kernel; that changes no number (p = 0, alpha = 1).  Ragged Sq and Skv
 // come in as zeros from TMA's out-of-bounds fill and are masked here.  The
 // epilogue divides O by l in f32, rounds once to bf16 and stores two

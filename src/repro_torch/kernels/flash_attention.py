@@ -14,9 +14,12 @@ one from dtypes, shapes, strides and alignment alone:
   by TMA, QK^T and PV on ``wgmma`` with f32 accumulators, p split into two
   bf16 terms so that the result stays within one bf16 ulp of the f32
   computation.  Every bf16 prefill layer of the LM runs here.
-* ``csrc/flash_attention.cu`` ``flash_attention_kernel`` takes the rest
-  (f32, other head dims, other layouts): f32 inside with f32 FMAs on the
-  CUDA cores, as the Pallas kernel computes.
+* ``csrc/flash_attention.cu`` ``flash_attention_tf32_kernel`` takes the
+  rest (f32, other head dims, other layouts): QK^T and PV on the TF32
+  tensor cores (``mma.sync`` m16n8k8) with f32 accumulators, every f32
+  operand split into two TF32 terms (three products where the function
+  has one) so that the result holds the Pallas kernel's f32 tolerance;
+  bf16 operands are exact in TF32 and need fewer products.
 
 Both are bound by operations (4.3 GFLOP at gemma-2b's 1024-token prefill).
 A route is a choice, not a fallback: a failed build or launch of either
@@ -35,9 +38,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import mha_ref
 
-SIMT = "flash_attention"
+TF32 = "flash_attention"
 WGMMA = "flash_attention_wgmma"
-LAUNCHES = build.counter(SIMT)
+LAUNCHES = build.counter(TF32)
 WGMMA_LAUNCHES = build.counter(WGMMA)
 
 MAX_HEAD_DIM = 256
@@ -101,33 +104,33 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes these operands: :data:`WGMMA` for bf16 with a
     head dim in :data:`WGMMA_HEAD_DIMS`, bases 16 B aligned and strides on
     the first three axes that are positive multiples of 16 B (what TMA
-    reads); :data:`SIMT` for everything else.  Reads dtypes, shapes,
+    reads); :data:`TF32` for everything else.  Reads dtypes, shapes,
     strides and base addresses only (the tuple accessors: this runs on
     every launch)."""
     bf16 = torch.bfloat16
     if q.dtype != bf16 or k.dtype != bf16 or v.dtype != bf16 or \
             q.shape[3] not in WGMMA_HEAD_DIMS:
-        return SIMT
+        return TF32
     for t in (q, k, v):
         if t.stride()[3] != 1 or t.data_ptr() % 16:
-            return SIMT
+            return TF32
         for s in _tma_strides(t):        # 16 B = 8 bf16 elements
             if s <= 0 or s % 8:
-                return SIMT
+                return TF32
     return WGMMA
 
 
-def flash_attention_simt_cuda(q: torch.Tensor, k: torch.Tensor,
+def flash_attention_tf32_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: Optional[int] = None,
                               q_offset: int = 0) -> torch.Tensor:
-    """Launch ``flash_attention_kernel``.  q ``[B, Hq, Sq, D]``, k/v
+    """Launch ``flash_attention_tf32_kernel``.  q ``[B, Hq, Sq, D]``, k/v
     ``[B, Hkv, Skv, D]`` with any strides on the first three axes and D
     contiguous, all f32 or all bf16 on one CUDA device, ``Hq % Hkv == 0``,
     D a multiple of 8 up to 256 -> ``[B, Hq, Sq, D]`` contiguous in q's
     type."""
-    _check(q, k, v, "flash_attention_simt_cuda", window)
-    return _launch_simt(q, k, v, causal, window, q_offset)
+    _check(q, k, v, "flash_attention_tf32_cuda", window)
+    return _launch_tf32(q, k, v, causal, window, q_offset)
 
 
 def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -152,27 +155,42 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: Optional[int] = None,
                          q_offset: int = 0) -> torch.Tensor:
     """K5 on CUDA tensors: the kernel that :func:`route` picks (see
-    :func:`flash_attention_simt_cuda` for what both take)."""
+    :func:`flash_attention_tf32_cuda` for what both take)."""
     _check(q, k, v, "flash_attention_cuda", window)
     if route(q, k, v) == WGMMA:
         return _launch_wgmma(q, k, v, causal, window, q_offset, True)
-    return _launch_simt(q, k, v, causal, window, q_offset)
+    return _launch_tf32(q, k, v, causal, window, q_offset)
 
 
-def _launch_simt(q, k, v, causal, window, q_offset) -> torch.Tensor:
+def copy_width(*ts: torch.Tensor) -> int:
+    """Bytes of one row copy of the TF32 kernel that every row start of
+    ``ts`` allows: 16 (f32 only: a bf16 tile row in shared memory is 8 B
+    aligned), 8 or 4 when the bases and the strides of the first three axes
+    (those of size > 1) are multiples of it, else 0 (element copies)."""
+    esz = ts[0].element_size()
+    for w in ((16, 8, 4) if esz == 4 else (8, 4)):
+        if all(t.data_ptr() % w == 0 and all(
+                s * esz % w == 0 for n, s in zip(t.shape[:3], t.stride()[:3])
+                if n > 1) for t in ts):
+            return w
+    return 0
+
+
+def _launch_tf32(q, k, v, causal, window, q_offset) -> torch.Tensor:
     bsz, hq, sq, d = q.shape
     o = torch.empty((bsz, hq, sq, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    lib = build.library(SIMT)
+    lib = build.library(TF32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bsz, hq,
             k.shape[1], sq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], int(causal), 0 if window is None else window,
-            q_offset, d ** -0.5, _DTYPES[q.dtype], stream)
-    build.check(err, SIMT)
+            q_offset, d ** -0.5, _DTYPES[q.dtype], copy_width(q),
+            copy_width(k, v), stream)
+    build.check(err, TF32)
     LAUNCHES.add()
     return o
 

@@ -11,10 +11,15 @@ become integer work on shared memory (``csrc/lut_kernels.cu``):
   activation tile, forms the address with shifts and reads
   ``tab[off+u][addr]``.  Two activation tiles ``h``/``h_next`` (uint8 when
   every code fits, else uint16/uint32) alternate between layers.
-* **K2, streamed** (``cascade_streamed_kernel``): for table sets beyond one
-  block's shared memory.  The CTA walks the phases of
-  :func:`_phase_layout` (layer, unit tile) itself, staging each phase's
-  table and map tile; ``h``/``h_next`` stay in shared memory throughout.
+* **K2, streamed** (``cascade_streamed_kernel``): for table sets beyond
+  one block's shared memory, split over a thread-block cluster of up to 8
+  CTAs (:func:`plan_cluster`).  The CTAs of a cluster share one batch
+  tile; each owns a slice of every layer's units, keeps its slice of the
+  tables and maps in shared memory (or streams it through a two-stage ring
+  where it does not fit), and writes its output codes into every CTA's
+  activation tile through distributed shared memory, one cluster barrier
+  per layer.  Clusters are persistent: each walks several batch tiles with
+  its tables in place.
 
 Both read ``tables`` and the ``map_<l>`` buffers and ignore ``amat``, which
 the plan keeps for format compatibility.  Both are bound by bytes: the
@@ -28,7 +33,9 @@ autotuner needs to reproduce the reference's plan metadata.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -44,6 +51,12 @@ STREAMED_LAUNCHES = build.counter("lut_cascade_streamed")
 
 SMEM_PER_BLOCK = 232_448     # dynamic shared memory one Hopper block may use
 MAX_BLOCK_B = 64             # rows per CTA: more CTAs in flight beats wider tiles
+CLUSTER_MAX = 8              # K2's CTAs a cluster (the portable limit)
+CLUSTER_SIZES = (4, 8)       # K2's cluster sizes, in the order plans try them
+CLUSTER_ROWS = 32            # K2's rows a cluster tile, at most
+CLUSTER_MIN_ROWS = 8         # fewer resident rows than this: take the ring
+CLUSTER_FEW_ROWS = 16        # a smaller cluster is taken at this many rows
+GROUP = 4                    # units a K2 work item (kGroup in the kernel)
 
 
 def layers_v1(layers: Sequence[Sequence[int]]) -> Tuple[LayerMeta, ...]:
@@ -172,15 +185,124 @@ def resident_smem_bytes(layers: Sequence[Sequence[int]], table_itemsize: int,
             + 2 * _align16(act))
 
 
-def streamed_smem_bytes(layers: Sequence[Sequence[int]], table_itemsize: int,
-                        unit_tile: int, block_b: int) -> int:
-    """Shared memory K2 needs: one table tile, one map tile, two
-    activation tiles."""
-    max_entries = max(int(l[2]) for l in layers)
-    max_fan = max([int(l[4]) for l in layers if not int(l[6])] or [0])
-    act = block_b * act_width(layers) * act_itemsize(layers)
-    return (_align16(unit_tile * max_entries * table_itemsize)
-            + _align16(unit_tile * max_fan * 4) + 2 * _align16(act))
+def cluster_share(n: int, cluster: int) -> int:
+    """Units of a layer of ``n`` units that each CTA of a K2 cluster owns:
+    ``ceil(n / cluster)`` rounded up to :data:`GROUP`."""
+    per_cta = -(-n // cluster)
+    return -(-per_cta // GROUP) * GROUP
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """How K2 splits a cascade over a cluster: ``cluster`` CTAs share a
+    batch tile of ``rows`` rows; CTA ``c`` owns units ``ranges[c][l] =
+    (lo, hi)`` of layer ``l`` (and ``input_ranges[c]`` of the input
+    columns); its share of the tables stays resident (``ring_units`` 0) or
+    streams through two stages of ``ring_units`` units; ``smem_bytes`` is
+    what one CTA needs, ``a_pad`` the activation tile's width."""
+
+    cluster: int
+    rows: int
+    ring_units: int
+    a_pad: int
+    smem_bytes: int
+    ranges: Tuple[Tuple[Tuple[int, int], ...], ...]
+    input_ranges: Tuple[Tuple[int, int], ...]
+
+    @property
+    def route(self) -> str:
+        """``"ring"`` or ``"resident"``."""
+        return "ring" if self.ring_units else "resident"
+
+
+def _a_pad(layers: Sequence[Sequence[int]]) -> int:
+    """Row width of K2's activation tiles: the widest layer input rounded
+    up to :data:`GROUP`; for uint8 codes also an odd number of 4-byte
+    words, so that the rows a warp reads at one column fall in distinct
+    shared-memory banks."""
+    a = -(-act_width(layers) // GROUP) * GROUP
+    if act_itemsize(layers) == 1 and a // 4 % 2 == 0:
+        a += 4
+    return a
+
+
+def _owned(n: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
+    share = cluster_share(n, cluster)
+    return tuple((min(c * share, n), min((c + 1) * share, n))
+                 for c in range(cluster))
+
+
+def cluster_smem_bytes(layers: Sequence[Sequence[int]], table_itemsize: int,
+                       cluster: int, rows: int, ring_units: int = 0,
+                       max_entries: Optional[int] = None) -> int:
+    """Shared memory one K2 CTA needs, as the kernel lays it out: its share
+    of every layer's table rows and maps (or two ring stages of
+    ``ring_units`` units), then two activation tiles of ``rows`` rows."""
+    max_entries = max_entries or max(int(l[2]) for l in layers)
+    row = max_entries * table_itemsize
+    if ring_units:
+        max_fan = max([int(l[4]) for l in layers if not int(l[6])] or [0])
+        const = 2 * (_align16(ring_units * row)
+                     + _align16(ring_units * max_fan * 4))
+    else:
+        const = 0
+        for l in layers:
+            share = cluster_share(int(l[1]), cluster)
+            const += _align16(share * row)
+            if not int(l[6]):
+                const += _align16(share * int(l[4]) * 4)
+    return const + 2 * _align16(rows * _a_pad(layers)
+                                * act_itemsize(layers))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_cluster(layers: Tuple[Tuple[int, ...], ...], table_itemsize: int, *,
+                 unit_tile: int = 8, max_entries: Optional[int] = None,
+                 cluster: Optional[int] = None,
+                 rows: Optional[int] = None) -> ClusterPlan:
+    """K2's plan for v2 ``layers`` (a tuple of tuples) and a table
+    itemsize.  By default the resident route on the first of
+    :data:`CLUSTER_SIZES` whose CTAs hold their share and at least
+    :data:`CLUSTER_FEW_ROWS` rows in :data:`SMEM_PER_BLOCK` (the most rows,
+    a power of two up to :data:`CLUSTER_ROWS`), else resident on
+    :data:`CLUSTER_MAX` at down to :data:`CLUSTER_MIN_ROWS` rows, else the
+    ring on :data:`CLUSTER_MAX` at the most rows that fit, with stages of
+    ``unit_tile`` units rounded up to :data:`GROUP` (fewer, in steps of
+    :data:`GROUP`, where two such stages do not fit).  ``cluster`` and
+    ``rows`` pin either (the plan sweep): resident if that fits, else the
+    ring.  Raises when nothing fits."""
+    if not is_v2_layers(layers):
+        raise ValueError("lut_cascade: K2 needs v2 layer metadata")
+    if cluster is not None and not 1 <= int(cluster) <= CLUSTER_MAX:
+        raise ValueError(f"lut_cascade: cluster {cluster} not in "
+                         f"1..{CLUSTER_MAX}")
+    ring = -(-max(int(unit_tile), 1) // GROUP) * GROUP
+    granules = range(ring, 0, -GROUP)
+    pw2 = [CLUSTER_ROWS >> i for i in range(CLUSTER_ROWS.bit_length())]
+    if cluster is not None or rows is not None:
+        c = CLUSTER_MAX if cluster is None else int(cluster)
+        rs = pw2 if rows is None else [int(rows)]
+        tries = [(c, r, 0) for r in rs] + [(c, r, g) for r in rs
+                                           for g in granules]
+    else:
+        # resident on the smallest cluster that holds CLUSTER_FEW_ROWS rows
+        # (fewer peers to write to), else on the largest, else the ring
+        tries = [(c, r, 0) for c in CLUSTER_SIZES for r in pw2
+                 if r >= CLUSTER_FEW_ROWS]
+        tries += [(CLUSTER_MAX, r, 0) for r in pw2 if r >= CLUSTER_MIN_ROWS]
+        tries += [(CLUSTER_MAX, r, g) for r in pw2 for g in granules]
+
+    for c, r, g in tries:
+        smem = cluster_smem_bytes(layers, table_itemsize, c, r, g,
+                                  max_entries)
+        if r >= 1 and smem <= SMEM_PER_BLOCK:
+            return ClusterPlan(
+                cluster=c, rows=r, ring_units=g, a_pad=_a_pad(layers),
+                smem_bytes=smem,
+                ranges=tuple(zip(*(_owned(int(l[1]), c) for l in layers))),
+                input_ranges=_owned(int(layers[0][0]), c))
+    raise ValueError(f"lut_cascade: no K2 plan fits {SMEM_PER_BLOCK} B of "
+                     f"shared memory (cluster {cluster}, rows {rows})")
 
 
 def _fit_block_b(smem_of) -> int:
@@ -281,26 +403,63 @@ def lut_cascade_resident(codes: torch.Tensor,
 
 def lut_cascade_streamed(codes: torch.Tensor, ops: CascadeOperands, *,
                          unit_tile: int = 8) -> torch.Tensor:
-    """Launch K2: ``[B, W0]`` int32 codes -> ``[B, n_out]`` int32."""
+    """Launch K2 on the plan :func:`plan_cluster` makes: ``[B, W0]`` int32
+    codes -> ``[B, n_out]`` int32.  ``unit_tile`` is the ring route's copy
+    granule (the resident route does not read it)."""
     _check_codes(codes, ops)
     if unit_tile < 1:
         raise ValueError(f"lut_cascade: unit_tile {unit_tile} < 1")
+    plan = plan_cluster(ops.layers, ops.tables.element_size(),
+                        unit_tile=unit_tile, max_entries=ops.tables.shape[1])
+    return launch_streamed(codes, ops, plan)
+
+
+@functools.lru_cache(maxsize=64)
+def max_active_clusters(device_index: int, table_itemsize: int,
+                        act_size: int, ring: bool, cluster: int,
+                        smem: int) -> int:
+    """Clusters of K2 that fit the card at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = build.library("lut_kernels")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.lut_cascade_streamed_max_clusters(
+            table_itemsize, act_size, int(ring), cluster, smem,
+            ctypes.byref(n))
+    build.check(err, "lut_cascade_streamed (occupancy)")
+    return n.value
+
+
+def launch_streamed(codes: torch.Tensor, ops: CascadeOperands,
+                    plan: ClusterPlan) -> torch.Tensor:
+    """Launch K2 on an explicit :class:`ClusterPlan` (the plan sweep's
+    entry; :func:`lut_cascade_streamed` is the path's): one persistent
+    cluster per batch tile, at most as many as fit the card at once."""
+    _check_codes(codes, ops)
     layers, isz = ops.layers, ops.tables.element_size()
-    bb = _fit_block_b(
-        lambda r: streamed_smem_bytes(layers, isz, unit_tile, r))
     b = codes.shape[0]
     out = torch.empty((b, layers[-1][1]), dtype=torch.int32,
                       device=codes.device)
     if b == 0:
         return out
     lib = build.library("lut_kernels")
+    asz = act_itemsize(layers)
+    fit = max_active_clusters(codes.device.index or 0, isz, asz,
+                              bool(plan.ring_units), plan.cluster,
+                              plan.smem_bytes)
+    if fit < 1:
+        raise RuntimeError(f"lut_cascade_streamed: no cluster of "
+                           f"{plan.cluster} CTAs of {plan.smem_bytes} B fits "
+                           "the card")
+    n_clusters = min(-(-b // plan.rows), fit)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.lut_cascade_streamed_launch(
             codes.data_ptr(), ops.tables.data_ptr(), isz, ops.maps.data_ptr(),
             ops.desc.data_ptr(), len(layers), b, layers[0][0],
-            ops.tables.shape[1], act_width(layers), act_itemsize(layers),
-            unit_tile, ops.max_fan, bb, out.data_ptr(), stream)
+            ops.tables.shape[1], plan.a_pad, asz, ops.max_fan, plan.cluster,
+            plan.rows, plan.ring_units, n_clusters, plan.smem_bytes,
+            out.data_ptr(), stream)
     build.check(err, "lut_cascade_streamed")
     STREAMED_LAUNCHES.add()
     return out

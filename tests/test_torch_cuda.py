@@ -349,7 +349,7 @@ def test_flash_attention_wgmma_matches_plain_and_counts(b, hq, hkv, sq, skv,
     got = flash_attention.flash_attention_wgmma_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     assert build.launch_counts()[flash_attention.WGMMA] == 1
-    assert build.launch_counts()[flash_attention.SIMT] == 0
+    assert build.launch_counts()[flash_attention.TF32] == 0
     assert got.dtype == torch.bfloat16 and got.is_contiguous()
     torch.testing.assert_close(
         got.float(), flash_attention.flash_attention_plain(q, k, v, **kw).float(),
@@ -358,12 +358,12 @@ def test_flash_attention_wgmma_matches_plain_and_counts(b, hq, hkv, sq, skv,
 
 def test_flash_attention_routes_bf16_to_wgmma_and_f32_to_simt(cuda):
     """The model's strided q in bf16 goes to the wgmma kernel; the same
-    operands in f32 still go to the SIMT kernel, at the reference's 2e-5."""
+    operands in f32 still go to the TF32 kernel, at the reference's 2e-5."""
     q, k, v = _qkv(1, 8, 1, 700, 700, 256, 9, cuda)
     qt = q.transpose(1, 2).contiguous().transpose(1, 2)
     for dtype, kernel, tol in ((torch.bfloat16, flash_attention.WGMMA,
                                 dict(rtol=2 ** -7, atol=1e-5)),
-                               (torch.float32, flash_attention.SIMT,
+                               (torch.float32, flash_attention.TF32,
                                 dict(rtol=2e-5, atol=2e-5))):
         qd, kd, vd = (t.to(dtype) for t in (qt, k, v))
         assert flash_attention.route(qd, kd, vd) == kernel
@@ -400,3 +400,147 @@ def test_flash_attention_window_and_refusals(cuda):
         flash_attention.flash_attention_cuda(q.half(), k.half(), v.half())
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention.flash_attention_cuda(q.requires_grad_(), k, v)
+
+
+# K5's TF32 kernel: (b, hq, hkv, sq, skv, d, causal, window, q_offset) at
+# every head-dim bucket, ragged S, windows, q_offset and Sq 1
+TF32_CASES = ([(2, 4, 2, 77, 77, d, True, None, 0) for d in (8, 16, 32, 96, 256)]
+              + [(1, 4, 1, 1, 96, d, True, 24, 95) for d in (8, 16, 32, 96, 256)]
+              + [(1, 8, 1, 300, 300, 256, True, 64, 0),
+                 (2, 4, 2, 100, 130, 96, False, None, 30),
+                 (1, 2, 2, 65, 65, 16, True, None, -3)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,q_offset",
+                         TF32_CASES)
+def test_flash_attention_tf32_kernel_matches_plain_and_counts(
+        b, hq, hkv, sq, skv, d, causal, window, q_offset, dtype, cuda):
+    """The split-TF32 kernel holds the reference's f32 tolerance (rtol =
+    atol = 2e-5) and one bf16 ulp (rtol 2^-7, atol 1e-5), with q
+    contiguous and as the model's strided view; rows that see no key give
+    0 (as the Pallas kernel; ``mha_ref`` averages them); one launch a
+    call."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, sq + d, cuda, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-5))
+    want = flash_attention.flash_attention_plain(q, k, v, **kw).float()
+    if causal and q_offset < 0:      # rows that see no key give 0
+        want[:, :, :-q_offset] = 0.0
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    for qq in (q, qt):
+        build.reset_counters()
+        got = flash_attention.flash_attention_tf32_cuda(qq, k, v, **kw)
+        torch.cuda.synchronize()
+        assert build.launch_counts()[flash_attention.TF32] == 1
+        assert got.dtype == dtype and got.is_contiguous()
+        torch.testing.assert_close(got.float(), want, **tol)
+
+
+def test_flash_attention_tf32_kernel_unaligned_rows(cuda):
+    """Row strides that allow no 4-byte copy (bf16, odd element stride)
+    and 8-byte ones (f32, stride D + 2) take narrower copies, same
+    result."""
+    for dtype, pad in ((torch.bfloat16, 1), (torch.float32, 2)):
+        q, k, v = _qkv(1, 4, 2, 70, 70, 24, 3, cuda, dtype)
+        kp = torch.zeros((1, 2, 70, 24 + pad), dtype=dtype, device=cuda)
+        kp[..., :24] = k
+        kp = kp[..., :24]
+        assert flash_attention.copy_width(kp) < flash_attention.copy_width(k)
+        tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+               else dict(rtol=2 ** -7, atol=1e-5))
+        torch.testing.assert_close(
+            flash_attention.flash_attention_tf32_cuda(q, kp, v).float(),
+            flash_attention.flash_attention_plain(q, k, v).float(), **tol)
+
+
+def _ring_network(rs):
+    """A cascade whose tables (2.4 MB of int8: 6-input L-LUTs on 2-bit
+    codes, 4,096 entries) do not fit a K2 CTA's share: the ring route."""
+    spec = ((784, 512, 6, 2, 0), (512, 64, 6, 2, 0), (64, 16, 4, 2, 1))
+    layers, tables, maps, off = [], [], [], 0
+    for prev, units, fan, bits, asm in spec:
+        entries = 2 ** (bits * fan)
+        layers.append((prev, units, entries, off, fan, bits, asm))
+        tables.append(rs.randint(0, 4, (units, entries)))
+        maps.append(None if asm else rs.randint(0, prev, (units, fan)))
+        off += units
+    tab = np.zeros((off, max(t.shape[1] for t in tables)), np.int8)
+    for (_, u, e, o, *_), t in zip(layers, tables):
+        tab[o:o + u, :e] = t
+    return tuple(layers), tab, maps
+
+
+def _cascade(codes, tables, maps, layers):
+    """Layer by layer through the ``take`` lookup (the oracle)."""
+    h = codes
+    for (_, units, entries, off, fan, bits, asm), mp in zip(layers, maps):
+        ci = (h.reshape(h.shape[0], units, fan) if asm
+              else h[:, mp.long()])
+        w = 2 ** (bits * torch.arange(fan - 1, -1, -1, device=h.device))
+        addr = (ci.long() * w).sum(-1).clamp_max(entries - 1).int()
+        h = lut_gather.lut_lookup_plain(tables[off:off + units].int(), addr)
+    return h
+
+
+@pytest.mark.parametrize("tdtype", [torch.int8, torch.int16, torch.int32])
+@pytest.mark.parametrize("unit_tile", [1, 8, 16, 32])
+def test_streamed_cluster_kernel_bit_exact(unit_tile, tdtype, cuda):
+    """K2 at mnist's widths (its main-path plan) and on a table set that
+    takes the ring, bit for bit against ``lut_cascade_plain`` and the
+    per-layer ``take`` cascade, B in {1, 33, 1024, 4099}; one launch a
+    call."""
+    rs = np.random.RandomState(unit_tile)
+    cfg = paper_tasks.task_config("mnist")
+    plan = pipeline.CompiledLUTNetwork(
+        cfg, *_arrays(cfg, 5), device=cuda).compile_backend("fused").plan
+    layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
+    maps = [plan.tensor(f"map_{l}", cuda) if f"map_{l}" in plan.buffers
+            else None for l in range(len(layers))]
+    rlayers, rtab, rmaps = _ring_network(rs)
+    nets = [(layers, plan.tensor("tables", cuda), maps),
+            (rlayers, torch.from_numpy(rtab).to(cuda),
+             [None if m is None else torch.from_numpy(m).int().to(cuda)
+              for m in rmaps])]
+    for (lay, tab, mp), route in zip(nets, ("resident", "ring")):
+        tab = tab.to(tdtype)
+        cplan = lut_cascade.plan_cluster(lay, tab.element_size(),
+                                         unit_tile=unit_tile,
+                                         max_entries=tab.shape[1])
+        if route == "ring" or tdtype == torch.int8:
+            assert cplan.route == route
+        ops = lut_cascade.prepare(tab, lay, mp)
+        for b in (1, 33, 1024, 4099):
+            codes = torch.from_numpy(rs.randint(
+                0, 2 ** lay[0][5], (b, lay[0][0])).astype(np.int32)).to(cuda)
+            build.reset_counters()
+            got = lut_cascade.lut_cascade_streamed(codes, ops,
+                                                   unit_tile=unit_tile)
+            torch.cuda.synchronize()
+            assert build.launch_counts()["lut_cascade_streamed"] == 1
+            assert torch.equal(got, lut_cascade.lut_cascade_plain(
+                codes, tab, mp, lay))
+            assert torch.equal(got, _cascade(codes, tab, mp, lay))
+
+
+@pytest.mark.parametrize("cluster,rows", [(1, 8), (2, 8), (4, 16), (8, 32),
+                                          (8, 8), (3, 5)])
+def test_streamed_cluster_plans_bit_exact(cluster, rows, cuda):
+    """Every cluster size and tile height the plan sweep tries gives the
+    same bits (resident where the share fits, else the ring)."""
+    cfg = paper_tasks.task_config("mnist")
+    plan = pipeline.CompiledLUTNetwork(
+        cfg, *_arrays(cfg, 6), device=cuda).compile_backend("fused").plan
+    layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
+    tables = plan.tensor("tables", cuda)
+    maps = [plan.tensor(f"map_{l}", cuda) if f"map_{l}" in plan.buffers
+            else None for l in range(len(layers))]
+    ops = lut_cascade.prepare(tables, layers, maps)
+    codes = torch.randint(0, 2, (1024, layers[0][0]), dtype=torch.int32,
+                          device=cuda)
+    want = lut_cascade.lut_cascade_plain(codes, tables, maps, layers)
+    cplan = lut_cascade.plan_cluster(layers, 1, cluster=cluster, rows=rows)
+    got = lut_cascade.launch_streamed(codes, ops, cplan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -257,19 +257,19 @@ def _route_case(name):
                   _bf16(2, 2, 96, 64)), flash_attention.WGMMA),
         "size-1 axes with any stride": ((_bf16(1, 1, 40, 256)[:, :, 3:4],
                                          k, k), flash_attention.WGMMA),
-        "float32": ((q.float(), k.float(), k.float()), flash_attention.SIMT),
+        "float32": ((q.float(), k.float(), k.float()), flash_attention.TF32),
         "d 32": ((_bf16(1, 4, 8, 32), _bf16(1, 4, 8, 32),
-                  _bf16(1, 4, 8, 32)), flash_attention.SIMT),
+                  _bf16(1, 4, 8, 32)), flash_attention.TF32),
         "d 96": ((_bf16(1, 4, 8, 96), _bf16(1, 4, 8, 96),
-                  _bf16(1, 4, 8, 96)), flash_attention.SIMT),
+                  _bf16(1, 4, 8, 96)), flash_attention.TF32),
         "base not 16 B aligned": ((_bf16(1, 8, 32, 256, offset=1), k, k),
-                                  flash_attention.SIMT),
+                                  flash_attention.TF32),
         "row stride not a multiple of 16 B": (
-            (q, _bf16(1, 1, 32, 260)[..., :256], k), flash_attention.SIMT),
+            (q, _bf16(1, 1, 32, 260)[..., :256], k), flash_attention.TF32),
         "row stride a multiple of 16 B": (
             (q, _bf16(1, 1, 32, 264)[..., :256], k), flash_attention.WGMMA),
         "stride 0 on KV heads": ((q, k, _bf16(1, 1, 32, 256).expand(
-            1, 8, 32, 256)), flash_attention.SIMT),
+            1, 8, 32, 256)), flash_attention.TF32),
     }[name]
 
 
@@ -285,12 +285,119 @@ def test_route_picks_the_kernel_from_dtype_head_dim_strides_and_alignment(
 
 
 @pytest.mark.parametrize("fn", ["flash_attention_cuda",
-                                "flash_attention_simt_cuda",
+                                "flash_attention_tf32_cuda",
                                 "flash_attention_wgmma_cuda"])
 def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing(fn):
     q, k = _bf16(1, 8, 16, 256), _bf16(1, 1, 16, 256)
     build.reset_counters()
     with pytest.raises(ValueError, match="CUDA"):
         getattr(flash_attention, fn)(q, k, k)
-    assert build.launch_counts()[flash_attention.SIMT] == 0
+    assert build.launch_counts()[flash_attention.TF32] == 0
     assert build.launch_counts()[flash_attention.WGMMA] == 0
+
+
+# -- the TF32 kernel's numerical design, emulated on the CPU ----------------
+
+def _tf32(x):
+    """f32 truncated to TF32 (10 explicit mantissa bits): what the tensor
+    cores read of a .tf32 operand."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    """x = hi + lo as the kernel splits it: hi = x truncated to TF32, lo =
+    x - hi, which enters the mma truncated to TF32."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mma(a, b, split):
+    """sum_k a[..., k] b[k, ...] as the kernel forms it: 8-deep chunks in
+    order, each adding a_lo b_hi and a_hi b_lo to one f32 accumulator and
+    a_hi b_hi to another (exact products of TF32 terms; QK^T adds the two
+    once a tile, PV keeps one) -- or, with ``split=False``, one product of
+    operands truncated once to TF32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if not split:
+        al, bl = torch.zeros_like(al), torch.zeros_like(bl)
+    shape = a.shape[:-1] + b.shape[-1:]
+    big, small = torch.zeros(shape), torch.zeros(shape)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        small = small + al[..., ks] @ bh[..., ks, :]
+        small = small + ah[..., ks] @ bl[..., ks, :]
+        big = big + ah[..., ks] @ bh[..., ks, :]
+    return small + big
+
+
+def _tf32_emulation(q, k, v, *, causal=True, window=None, q_offset=0,
+                    split=True, bk=32):
+    """Plain-torch emulation of ``flash_attention_tf32_kernel``'s rounding
+    points (a test helper, on no path): per BK-key tile, S = Q K^T and
+    O += P V through :func:`_mma`; s * scale, masks, the running max and
+    sum with exp in f32 as the Pallas kernel; o = acc / max(l, 1e-30)
+    rounded to q's type once.  (The kernel's two warps a row, each over
+    half of a tile's keys, merge at the end; that reorders f32 sums only.)"""
+    b, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    neg = torch.tensor(-1e30)
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    qpos = torch.arange(sq)[:, None] + q_offset
+    for k0 in range(0, k.shape[2], bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        mask = torch.ones((sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, _mma(qf, kt.transpose(-1, -2), split)
+                        * (d ** -0.5), neg)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - mn), torch.zeros(()))
+        alpha = torch.exp(m - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mma(p, vt, split)
+        m = mn
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+TF32_CASES = {**{f"k5 {c}": (2, *c[:4], 32, *c[4:]) for c in CASES},
+              "gemma causal d256": (1, 8, 1, 96, 96, 256, True, None)}
+
+
+@pytest.mark.parametrize("case", list(TF32_CASES))
+def test_tf32_emulation_matches_pallas_interpret_and_reference(case):
+    """Split operands (3 products each) hold the reference's f32 tolerance,
+    rtol = atol = 2e-5, against the Pallas kernel in interpret mode and
+    ``mha_ref`` on the 15 reference cases at D 32 and at D 256, causal."""
+    b, hq, hkv, sq, skv, d, causal, window = TF32_CASES[case]
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, seed=hq + sq + d)
+    kw = dict(causal=causal, window=window, q_offset=skv - sq)
+    got = _tf32_emulation(*map(torch.from_numpy, (q, k, v)), **kw).numpy()
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    for want in (flash_attention_pallas(jq, jk, jv, block_q=32, block_k=32,
+                                        interpret=True, **kw),
+                 jref.mha_ref(jq, jk, jv, **kw)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_one_tf32_rounding_breaks_the_f32_tolerance():
+    """The same kernel with every operand truncated once to TF32 (one
+    product each) misses rtol = atol = 2e-5 on gemma's layout at D 256,
+    and the split stays within it."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 1, 96, 96, 256,
+                                                 seed=29))
+    want = flash_attention.flash_attention_plain(q, k, v)
+    split = _tf32_emulation(q, k, v)
+    single = _tf32_emulation(q, k, v, split=False)
+    torch.testing.assert_close(split, want, rtol=2e-5, atol=2e-5)
+    assert not torch.allclose(single, want, rtol=2e-5, atol=2e-5)
+    assert (single - want).abs().max() > 10 * (split - want).abs().max()
