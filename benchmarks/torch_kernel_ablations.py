@@ -1,6 +1,7 @@
-"""What bounds K5's TF32 kernel and K2's cluster kernel: ablations on the card.
+"""What bounds K5's TF32 kernel, K2's cluster kernel and K1's persistent
+kernel: ablations on the card.
 
-    python benchmarks/torch_kernel_ablations.py [--only k5,k2]
+    python benchmarks/torch_kernel_ablations.py [--only k5,k2,k1]
 
 Each variant is a copy of a committed source (``csrc/flash_attention.cu``
 or ``csrc/lut_kernels.cu``) with one kind of work taken out or one
@@ -13,7 +14,9 @@ also held against the plain version.  Shapes:
   k/v ``[1, 1, 1024, 256]``, causal), and bf16 at head dim 16 on the same
   heads and length;
 * K2: ``mnist`` (random int8 tables [5110, 64]), one block of 1024 rows,
-  on the default cluster plan.
+  on the default cluster plan;
+* K1: ``nid`` (random int8 tables [93, 64]), one block of 1024 rows, on
+  the default plan (8 rows a tile, 128 CTAs).
 
 Each time is the kernel's own device time in the profiler's trace (10
 calls), beside CUDA events around 40 calls.  Prints one JSON line per
@@ -105,6 +108,36 @@ VARIANTS = {
     "k2 no_gather": ("lut_kernels", [(
         "a[j] = (a[j] << bits) + static_cast<int>(hr[src[j]]);",
         "a[j] = (a[j] << bits) + (src[j] & 1);")]),
+    "k1 committed": ("lut_kernels", []),
+    # no layers: tables, codes and the barriers only
+    "k1 no_layers": ("lut_kernels", [(
+        "const int items = rows * groups;\n  for (int i = threadIdx.x; "
+        "i < items; i += blockDim.x) {\n    int r, grp;",
+        "const int items = 0 * groups;\n  for (int i = threadIdx.x; "
+        "i < items; i += blockDim.x) {\n    int r, grp;")]),
+    # codes never copied in (the narrowing pass reads a stale stage)
+    "k1 no_code_copy": ("lut_kernels", [
+        ("  fetch(tile, 0);\n", ""),
+        ("      fetch(tile + gridDim.x, (k + 1) & 1);\n", "")]),
+    # tables and maps never copied in (lookups read garbage)
+    "k1 no_table_copy": ("lut_kernels", [(
+        "  async_copy(smem, tables, static_cast<size_t>(tables_elems) * "
+        "sizeof(TabT));\n  async_copy(smem + tab_bytes, maps, "
+        "static_cast<size_t>(maps_words) * 4);\n", "")]),
+    # the fan-in loop of a mapping layer unrolled by 3 (its map and code
+    # reads of 3 inputs issued together; K2 shares the loop)
+    "k1 unroll_fan": ("lut_kernels", [(
+        "    for (int f = 0; f < fan_in; ++f) {\n      int src[kGroup];",
+        "    _Pragma(\"unroll 3\") for (int f = 0; f < fan_in; ++f) {\n"
+        "      int src[kGroup];")]),
+    # CTAs of 128 threads (nid's widest layer has 120 work items a tile)
+    "k1 threads_128": ("lut_kernels", [(
+        "constexpr int kResidentThreads = 256;",
+        "constexpr int kResidentThreads = 128;")]),
+    # the kernel returns at once: a launch of its shape and shared memory
+    "k1 empty": ("lut_kernels", [(
+        "  int tile = blockIdx.x;\n  if (tile >= n_tiles) return;",
+        "  int tile = blockIdx.x;\n  if (tile >= 0) return;")]),
 }
 
 
@@ -186,6 +219,23 @@ def main(only) -> None:
         0, 2, (1024, layers[0][0])).astype(np.int32)).to(dev)
     want_k2 = lc.lut_cascade_plain(codes, tables, maps, layers)
 
+    cfg1 = paper_tasks.task_config("nid")
+    plan1 = pipeline.CompiledLUTNetwork(
+        cfg1, *cs.random_network(cfg1, 0), device=dev
+    ).compile_backend("fused").plan
+    layers1 = tuple(tuple(int(x) for x in l) for l in plan1.meta["layers"])
+    tables1 = plan1.tensor("tables", dev)
+    maps1 = [plan1.tensor(f"map_{l}", dev) if f"map_{l}" in plan1.buffers
+             else None for l in range(len(layers1))]
+    ops1 = lc.prepare(tables1, layers1, maps1)
+    codes1 = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 2, (1024, layers1[0][0])).astype(np.int32)).to(dev)
+    want_k1 = lc.lut_cascade_plain(codes1, tables1, maps1, layers1)
+    rp = lc.plan_resident(layers1, 1, 1024,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count,
+                          max_entries=tables1.shape[1])
+
     for name in names:
         lib, stack = libs[name]
         row = {"variant": name, "ptxas_stack": stack}
@@ -207,6 +257,22 @@ def main(only) -> None:
                     row[label]["max_abs_err"] = float(
                         (o.float() - fa.flash_attention_plain(q, k, v)
                          .float()).abs().max())
+        elif name.startswith("k1"):
+            out = torch.empty_like(want_k1)
+
+            def call(out=out):
+                # the launcher's CTA size is kResidentThreads of the variant
+                build.check(lib.lut_cascade_resident_launch(
+                    codes1.data_ptr(), ops1.tables.data_ptr(), 1,
+                    ops1.maps.data_ptr(), ops1.desc.data_ptr(), len(layers1),
+                    1024, layers1[0][0], tables1.shape[1], rp.a_pad, 1,
+                    ops1.tables.numel(), ops1.map_words, rp.rows, rp.grid,
+                    rp.smem_bytes, out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream), name)
+            row["nid block 1024"] = timed(call, "cascade_resident_kernel")
+            row["plan"] = [rp.rows, rp.ctas_per_sm, rp.grid, rp.smem_bytes]
+            if name == "k1 committed":
+                row["equal_to_plain"] = bool(torch.equal(out, want_k1))
         else:
             fit = ctypes.c_int(0)
             build.check(lib.lut_cascade_streamed_max_clusters(
@@ -232,6 +298,6 @@ def main(only) -> None:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="k5,k2")
+    ap.add_argument("--only", default="k5,k2,k1")
     args = ap.parse_args()
     main(set(args.only.split(",")))

@@ -793,6 +793,19 @@ def k2_plan(ops, unit_tile: int, batch: int) -> dict:
             "clusters_launched": min(-(-batch // cp.rows), fit)}
 
 
+def k1_plan(ops, batch: int) -> dict:
+    """K1's plan at these operands and batch: rows a tile, CTAs an SM (the
+    plan's, and what the runtime reports), CTAs launched, tiles, bytes a
+    CTA."""
+    from repro_torch.kernels import lut_cascade as lc
+    isz = ops.tables.element_size()
+    p = lc.resident_plan(ops, batch, 0)
+    return {"rows": p.rows, "ctas_per_sm": p.ctas_per_sm,
+            "occupancy": lc.resident_occupancy(
+                0, isz, lc.act_itemsize(ops.layers), p.smem_bytes),
+            "grid": p.grid, "tiles": p.tiles, "smem_bytes": p.smem_bytes}
+
+
 def finite_net(net) -> bool:
     """Every float tensor of a parameter network is finite."""
     import torch
@@ -1095,18 +1108,22 @@ def main(seed: int) -> dict:
     # -- phase 3: each kernel against its plain version ----------------------
     errs = {k: 0 for k in REPLACES if k.startswith("lut_")}
     t3 = time.perf_counter()
-    mnist_plan = nets["mnist"].compile_backend("pallas").plan
-    for l, lm in enumerate(mnist_plan.meta["layers"]):
-        table = mnist_plan.tensor(f"table_{l}", dev)
-        for b in (1, 257, 4096):
-            addr = torch.from_numpy(rs.randint(
-                0, table.shape[1], size=(b, table.shape[0])).astype(np.int32)
-            ).to(dev)
-            got = lut_gather.lut_lookup_cuda(table, addr)
-            torch.cuda.synchronize()
-            want = lut_gather.lut_lookup_plain(table, addr)
-            errs["lut_lookup"] = max(errs["lut_lookup"], int(
-                (got - want).abs().max()))
+    # K3 on mnist's and nid's layers; a few addresses outside [0, T), which
+    # the kernel clamps (as a JAX gather does)
+    for task in ("mnist", "nid"):
+        lplan = nets[task].compile_backend("pallas").plan
+        for l in range(len(lplan.meta["layers"])):
+            table = lplan.tensor(f"table_{l}", dev)
+            t = table.shape[1]
+            for b in (1, 257, 1023, 4096):
+                addr = torch.from_numpy(rs.randint(
+                    -2, t + 2, size=(b, table.shape[0])).astype(np.int32)
+                ).to(dev)
+                got = lut_gather.lut_lookup_cuda(table, addr)
+                torch.cuda.synchronize()
+                want = lut_gather.lut_lookup_plain(table, addr.clamp(0, t - 1))
+                errs["lut_lookup"] = max(errs["lut_lookup"], int(
+                    (got - want).abs().max()))
     checks = [("lut_cascade_resident", t, None) for t in ("nid", "jsc_openml")]
     checks += [("lut_cascade_streamed", t, ut)
                for t in ("mnist", "jsc_cernbox") for ut in (8, 16, 32)]
@@ -1118,7 +1135,9 @@ def main(seed: int) -> dict:
                 else None for l in range(len(layers))]
         ops = lut_cascade.prepare(tables, layers, maps)
         span = 2 ** layers[0][5]
-        for b in (1, 33, 257, 4096):
+        # K1 also at 3 and 1023 rows: ragged last tiles of its plan
+        for b in ((1, 3, 33, 257, 1023, 4096) if ut is None
+                  else (1, 33, 257, 4096)):
             codes = torch.from_numpy(rs.randint(
                 0, span, size=(b, layers[0][0])).astype(np.int32)).to(dev)
             if ut is None:
@@ -1165,19 +1184,23 @@ def main(seed: int) -> dict:
     report["serve_gemma"] = serve_gemma(dev, smi, seed)
 
     # -- phase 5: kernel times at the main path's shapes (block 1024) -------
-    # Each kernel's "ms" is one main-path block of 1024 rows: one launch of
-    # K1/K2, one launch per layer of K3 (nid has 5 layers).  Times are CUDA
-    # events around 40 back-to-back blocks, which is host time when the
-    # Python wrapper takes longer than the kernel; device_ms is the kernels'
-    # own time in the profiler's CUDA trace, library_device_ms that of every
-    # kernel the library call launches.
+    # Each kernel's numbers count one launch at the main path's shapes: K1
+    # and K2 one launch a block of 1024 rows; K3 one layer's launch (nid's
+    # block runs 5, one a layer), as the mean of the 5 layers, with each
+    # layer's time and the block's totals beside it.  "ms" is CUDA events
+    # around 40 back-to-back calls, which is host time when the Python
+    # wrapper takes longer than the kernel; device_ms is the kernels' own
+    # time in the profiler's CUDA trace, library_device_ms that of every
+    # kernel the library call launches.  K1 on jsc_openml (int16 tables,
+    # 81 KB a CTA) is timed too and reported beside nid's row.
     kernels = []
     b = 1024
     substr = {"lut_cascade_streamed": "cascade_streamed_kernel",
               "lut_cascade_resident": "cascade_resident_kernel",
               "lut_lookup": "lut_lookup_kernel"}
     for kname, task in (("lut_cascade_streamed", "mnist"),
-                        ("lut_cascade_resident", "nid")):
+                        ("lut_cascade_resident", "nid"),
+                        ("lut_cascade_resident", "jsc_openml")):
         plan = nets[task].compile_backend("fused").plan
         layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
         tables = plan.tensor("tables", dev)
@@ -1197,6 +1220,7 @@ def main(seed: int) -> dict:
         else:
             kern = lambda c=codes, o=ops: (  # noqa: E731
                 lut_cascade.lut_cascade_resident(c, o))
+            report[f"k1_plan_{task}"] = k1_plan(ops, b)
         plain = lambda c=codes, t=tables, m=maps, l=layers: (  # noqa: E731
             lut_cascade.lut_cascade_plain(c, t, m, l))
         byts, n_ops = cascade_work(layers, b, tables.numel()
@@ -1204,7 +1228,8 @@ def main(seed: int) -> dict:
                                    ops.map_words * 4)
         kernels.append({"name": kname, "task": task, "batch": b,
                         "kernel": kern, "plain": plain, "library": None,
-                        "bytes": byts, "ops": n_ops})
+                        "bytes": byts, "ops": n_ops,
+                        "side": task == "jsc_openml"})
     plan = nets["nid"].compile_backend("pallas").plan
     shapes = []
     for l in range(len(plan.meta["layers"])):
@@ -1214,7 +1239,8 @@ def main(seed: int) -> dict:
         ).to(dev)
         shapes.append((table, addr))
     kernels.append({
-        "name": "lut_lookup", "task": "nid", "batch": b,
+        "name": "lut_lookup", "task": "nid, mean of its 5 layers", "batch": b,
+        "per_launch": len(shapes),
         "kernel": lambda: [lut_gather.lut_lookup_cuda(t, a)
                            for t, a in shapes],
         "plain": lambda: [lut_gather.lut_lookup_plain(t, a)
@@ -1345,6 +1371,37 @@ def main(seed: int) -> dict:
                 if substr["reference"] in key) * 1e3 / 10
         for fn in ("kernel", "plain", "library"):
             del k[fn]
+        n_per = k.pop("per_launch", 1)
+        if n_per > 1:
+            # the lambda launched n_per kernels: keep the block's totals and
+            # report the mean launch, in the unit `launches` counts
+            keys = ("ms", "device_ms", "plain_ms", "library_ms",
+                    "library_device_ms", "bound_ms")
+            k["per_block"] = {"launches": n_per,
+                              **{key: k[key] for key in keys}}
+            for key in keys:
+                k[key] = None if k[key] is None else k[key] / n_per
+    # K3 layer by layer: each launch's device time beside its bound
+    k3 = next(k for k in kernels if k["name"] == "lut_lookup")
+    k3["per_layer"] = []
+    for t, a in shapes:
+        hits = [v for key, v in profile(
+            lambda t=t, a=a: lut_gather.lut_lookup_cuda(t, a))[1].items()
+            if substr["lut_lookup"] in key]
+        k3["per_layer"].append({
+            "units": t.shape[0], "entries": t.shape[1],
+            "device_ms": sum(sec for _, sec in hits) * 1e3 / 10 if hits
+            else None,
+            "bound_ms": bound(a.numel() * 8 + t.numel() * 4, 0)[0]})
+    side = [k for k in kernels if k.pop("side", False)]
+    kernels = [k for k in kernels if all(k is not x for x in side)]
+    for k in side:
+        report[f"k1_{k['task']}"] = k
+        print(f"time {k['name']} ({k['task']}, batch {k['batch']}): kernel "
+              f"{k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
+              f"({k['bound_by']}), plan {report['k1_plan_' + k['task']]} "
+              f"[{smi}]", flush=True)
     del x4, r4, w4, b4, dy4, xs4, ws4, bs4, qf, kf, vf, q32, k32, v32
     report["k5_by_prompt"] = k5_by_prompt(dev, seed, smi)
     report["k5_tf32_d16"] = k5_tf32_d16(dev, seed, smi)
@@ -1394,6 +1451,11 @@ def main(seed: int) -> dict:
                                          "library_kernels") if key in k}
         if k["name"] == "lut_cascade_streamed":
             extra["plan"] = report["k2_plan"]
+        if k["name"] == "lut_cascade_resident":
+            extra["plan"] = report["k1_plan_nid"]
+        if k["name"] == "lut_lookup":
+            extra["per_layer"] = k["per_layer"]
+            extra["per_block"] = k["per_block"]
         print(f"time {k['name']} ({k['task']}, batch {k['batch']}): kernel "
               f"{k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
               f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms (device "

@@ -1,6 +1,7 @@
 """Device resolution shared by every entry point of the port."""
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -28,3 +29,9 @@ def kind(device: Optional[torch.device]) -> str:
         return "gpu" if torch.cuda.is_available() else "cpu"
     t = torch.device(device).type
     return "gpu" if t == "cuda" else t
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

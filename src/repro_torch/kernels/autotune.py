@@ -27,7 +27,6 @@ DEVICE_MODELS: Dict[str, Dict[str, float]] = {
 
 BLOCK_B_CANDIDATES = (64, 128, 256, 512, 1024)
 UNIT_TILE_CANDIDATES = (8, 16, 32)
-RESIDENT_MIN_ROWS = 8   # activation rows a resident CTA must at least hold
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,10 +148,12 @@ def pick_tuning(layers: Sequence[Sequence[int]], *,
 
 
 def hopper_mode(layers: Sequence[Sequence[int]], table_itemsize: int) -> str:
-    """``"resident"`` when the packed tables, all maps and two activation
-    tiles of ``RESIDENT_MIN_ROWS`` rows fit one block's 232,448 bytes of
-    dynamic shared memory, else ``"streamed"``.  Needs v2 layer tuples."""
-    from repro_torch.kernels.lut_cascade import (SMEM_PER_BLOCK,
+    """``"resident"`` when K1 has a plan (:func:`lut_cascade.plan_resident`):
+    the packed tables, all maps, two code stages and two activation tiles
+    of ``RESIDENT_MIN_ROWS`` rows fit one block's 232,448 bytes of dynamic
+    shared memory; else ``"streamed"``.  Needs v2 layer tuples."""
+    from repro_torch.kernels.lut_cascade import (RESIDENT_MIN_ROWS,
+                                                 SMEM_PER_BLOCK,
                                                  resident_smem_bytes)
     need = resident_smem_bytes(layers, table_itemsize, RESIDENT_MIN_ROWS)
     return "resident" if need <= SMEM_PER_BLOCK else "streamed"

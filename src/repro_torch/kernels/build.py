@@ -131,9 +131,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "lut_kernels": {
-        "lut_lookup_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "lut_lookup_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
         "lut_cascade_resident_launch": (_P, _P, _I, _P, _P, _I, _I, _I, _I,
-                                        _I, _I, _L, _L, _I, _P, _P),
+                                        _I, _I, _L, _L, _I, _I, _L, _P, _P),
+        "lut_cascade_resident_occupancy": (_I, _I, _L, _P),
         "lut_cascade_streamed_launch": (_P, _P, _I, _P, _P, _I, _I, _I, _I,
                                         _I, _I, _I, _I, _I, _I, _I, _L, _P,
                                         _P),

@@ -15,11 +15,14 @@
 // What bounds them on this card: a lookup does no arithmetic worth the
 // name (an address is a few shifts and adds, the lookup one load), so the
 // floor is the bytes moved: input codes read once, output codes written
-// once, tables and maps read once (bytes / 3.35 TB/s).  What the TPU did
-// with a one-hot matmul on the MXU is here an indexed load from shared
-// memory, `tab[u][addr]`, which is exact by construction.  No float
-// product appears anywhere: an f32 product may run in TF32 on Hopper,
-// which would break the reference's 2^24 exactness argument.
+// once, tables and maps read once (bytes / 3.35 TB/s).  At the main path's
+// shapes that floor is below a microsecond, so what they are held to in
+// practice is latency: how many dependent global round trips a CTA waits
+// for and how many CTAs share the card.  What the TPU did with a one-hot
+// matmul on the MXU is here an indexed load, `tab[u][addr]`, which is
+// exact by construction.  No float product appears anywhere: an f32
+// product may run in TF32 on Hopper, which would break the reference's
+// 2^24 exactness argument.
 //
 // Address: addr = sum_f code[map[u,f]] << (bits*(F-1-f)), the first input
 // in the most significant bits (quant.pack_address).  Duplicate fan-in
@@ -32,6 +35,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -39,7 +43,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 // Per-layer descriptor, kDescInts int32 each (built by lut_cascade.py).
@@ -52,150 +55,298 @@ constexpr int D_BITS = 4;
 constexpr int D_ASSEMBLE = 5;
 constexpr int D_MAP_OFF = 6;
 
+constexpr int kGroup = 4;     // units per cascade work item (one pack store)
+
 __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~static_cast<size_t>(15);
 }
 
-// Block-wide copy of n bytes, 16 bytes a thread where possible.  Both
-// pointers are 16-byte aligned (the wrapper checks the global one).
-__device__ inline void copy_bytes(unsigned char* dst, const unsigned char* src,
+__device__ inline unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ inline void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ inline void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Block-wide asynchronous copy of n bytes into shared dst (16 B aligned):
+// 16 bytes a thread over the body where src is 16-byte aligned, the rest
+// 4 bytes a thread where src and n allow it, else plain byte copies (those
+// are visible after the next __syncthreads like the others).
+__device__ inline void async_copy(unsigned char* dst, const void* src,
                                   size_t n) {
-  const size_t n16 = n / 16;
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
-  uint4* d4 = reinterpret_cast<uint4*>(dst);
-  for (size_t i = threadIdx.x; i < n16; i += blockDim.x) d4[i] = s4[i];
-  for (size_t i = n16 * 16 + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
-// Rows [b0, b0+rows) of the int32 input codes into the activation tile.
-template <typename ActT>
-__device__ inline void load_codes(ActT* h, const int32_t* __restrict__ codes,
-                                  int b0, int rows, int w0, int a_dim) {
-  const int n = rows * w0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int r = i / w0;
-    const int c = i - r * w0;
-    h[static_cast<size_t>(r) * a_dim + c] =
-        static_cast<ActT>(codes[static_cast<size_t>(b0 + r) * w0 + c]);
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  size_t done = 0;
+  if (a % 16 == 0) {
+    done = n / 16 * 16;
+    for (size_t i = threadIdx.x; i < n / 16; i += blockDim.x)
+      cp_async16(dst + 16 * i, s + 16 * i);
   }
-}
-
-// Address of unit u of a layer from one activation row.  `src` is the
-// layer's fan-in list for this unit (nullptr for assemble layers, whose
-// unit u reads the contiguous slice [u*F, (u+1)*F)).
-template <typename ActT>
-__device__ inline int form_address(const ActT* hr, const int32_t* src, int u,
-                                   int fan_in, int bits) {
-  int a = 0;
-  if (src == nullptr) {
-    const ActT* p = hr + u * fan_in;
-    for (int f = 0; f < fan_in; ++f) a = (a << bits) + static_cast<int>(p[f]);
+  if ((a + done) % 4 == 0 && (n - done) % 4 == 0) {
+    for (size_t i = done / 4 + threadIdx.x; i < n / 4; i += blockDim.x)
+      cp_async4(dst + 4 * i, s + 4 * i);
   } else {
-    for (int f = 0; f < fan_in; ++f) a = (a << bits) + static_cast<int>(hr[src[f]]);
+    for (size_t i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = s[i];
   }
-  return a;
+}
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ inline void cp_async_wait_one() {     // all but the newest group
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// kGroup codes as one store.
+template <typename ActT> struct Pack;
+template <> struct Pack<uint8_t> { using type = uint32_t; };
+template <> struct Pack<uint16_t> { using type = uint2; };
+template <> struct Pack<uint32_t> { using type = uint4; };
+
+// The table values of the kGroup units k0 .. k0 + kGroup - 1 of a layer (of
+// the n a CTA handles) for one activation row hr, side by side so that
+// their loads are independent.  tab and map start at unit 0 of those n; an
+// assemble layer's unit k reads the input columns [(col0 + k) * F, ...).  A
+// unit past n repeats the last one (the caller does not store it).  An
+// address past the layer's entries is clamped to the last entry.
+template <typename TabT, typename InT>
+__device__ inline void group_lookup(const InT* hr, const TabT* tab,
+                                    const int32_t* map, int max_entries,
+                                    int entries, int fan_in, int bits,
+                                    bool assemble, int col0, int k0, int n,
+                                    int (&val)[kGroup]) {
+  int kk[kGroup], a[kGroup];
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    kk[j] = min(k0 + j, n - 1);
+    a[j] = 0;
+  }
+  if (assemble) {
+    for (int f = 0; f < fan_in; ++f) {
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        a[j] = (a[j] << bits) +
+               static_cast<int>(hr[(col0 + kk[j]) * fan_in + f]);
+    }
+  } else {
+    for (int f = 0; f < fan_in; ++f) {
+      int src[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) src[j] = map[kk[j] * fan_in + f];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        a[j] = (a[j] << bits) + static_cast<int>(hr[src[j]]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j)
+    val[j] = static_cast<int>(
+        tab[static_cast<size_t>(kk[j]) * max_entries + min(a[j], entries - 1)]);
 }
 
 // ---------------------------------------------------------------------------
-// K3: one layer's lookup, out[b,u] = table[u, addr[b,u]].
-// Grid (unit tiles, batch tiles).  The unit tile's table rows are staged in
-// shared memory when they fit (`staged`), else read through the cache.
-// Consecutive threads take consecutive units of one row, so the addr and
-// out accesses coalesce.  An address outside [0, T) is clamped, as a JAX
-// gather clamps.
+// K3: one layer's lookup, out[b,u] = table[u, addr[b,u]], over the flat
+// index i = b * U + u of the contiguous [B, U] arrays.
+//
+// The first kernel staged a 32-unit table tile in shared memory behind a
+// __syncthreads and only then issued its addr -> table -> out chain; at
+// nid's shapes it ran 16-32 CTAs, each three global round trips long.  Here
+// there is no staging and no barrier: each thread owns kVec consecutive
+// outputs (along U, wrapping to the next row), loads their addresses as one
+// 16-byte vector, reads the kVec table entries through the read-only path
+// (__ldg: a layer's table rows, 256 B a unit at 64 entries, stay in L1/L2)
+// and stores the codes as one vector, so a launch is one addr load, one
+// dependent table load and a store.  The wrapper sizes CTAs so that a
+// layer's grid covers the SMs (lut_gather.tile_shape).  kVec is 1 where
+// addr or out is not 16-byte aligned.  An address outside [0, T) is
+// clamped, as a JAX gather clamps.
 // ---------------------------------------------------------------------------
-__global__ void lut_lookup_kernel(const int32_t* __restrict__ table,
-                                  const int32_t* __restrict__ addr,
-                                  int32_t* __restrict__ out, int B, int U,
-                                  int T, int unit_tile, int block_b,
-                                  int staged) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int u0 = blockIdx.x * unit_tile;
-  const int b0 = blockIdx.y * block_b;
-  const int ut = min(unit_tile, U - u0);
-  const int rows = min(block_b, B - b0);
-  const int32_t* rows_src = table + static_cast<size_t>(u0) * T;
-  const int32_t* tab = rows_src;
-  if (staged) {
-    int32_t* s_tab = reinterpret_cast<int32_t*>(smem);
-    const int n = ut * T;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s_tab[i] = rows_src[i];
-    __syncthreads();
-    tab = s_tab;
+constexpr int kLookupMaxThreads = 256;
+
+template <int kVec>
+__global__ void __launch_bounds__(kLookupMaxThreads)
+lut_lookup_kernel(const int32_t* __restrict__ table,
+                  const int32_t* __restrict__ addr,
+                  int32_t* __restrict__ out, long long n, int U, int T) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * kVec;
+  if (i0 >= n) return;
+  int u = i0 <= INT_MAX
+              ? static_cast<int>(static_cast<unsigned>(i0) % static_cast<unsigned>(U))
+              : static_cast<int>(i0 % U);
+  if (kVec == 4 && i0 + 4 <= n) {
+    const int4 a4 = __ldg(reinterpret_cast<const int4*>(addr + i0));
+    const int a[4] = {a4.x, a4.y, a4.z, a4.w};
+    int v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = __ldg(table + static_cast<size_t>(u) * T + min(max(a[j], 0), T - 1));
+      u = u + 1 == U ? 0 : u + 1;
+    }
+    *reinterpret_cast<int4*>(out + i0) = make_int4(v[0], v[1], v[2], v[3]);
+    return;
   }
-  const int items = rows * ut;
-  for (int i = threadIdx.x; i < items; i += blockDim.x) {
-    const int r = i / ut;
-    const int u = i - r * ut;
-    const size_t g = static_cast<size_t>(b0 + r) * U + u0 + u;
-    const int a = min(max(addr[g], 0), T - 1);
-    out[g] = tab[static_cast<size_t>(u) * T + a];
+  const long long end = i0 + kVec < n ? i0 + kVec : n;
+  for (long long i = i0; i < end; ++i) {
+    out[i] = __ldg(table + static_cast<size_t>(u) * T +
+                   min(max(__ldg(addr + i), 0), T - 1));
+    u = u + 1 == U ? 0 : u + 1;
   }
 }
 
 // ---------------------------------------------------------------------------
 // K1: the whole cascade with every table resident in shared memory.
-// One CTA per batch tile of block_b rows.  At entry the CTA copies the
-// packed tables [sum U, max_entries] (narrow dtype) and all mapping-layer
-// maps into shared memory, then walks the layers with two activation
-// tiles h / h_next of block_b x a_dim codes (uint8 or uint16), one barrier
-// per layer.  The final layer writes int32 codes straight to `out`.
+//
+// The first kernel ran one CTA per 64-row tile (16 CTAs for a 1024-row
+// block on 132 SMs) and loaded each tile's int32 codes 4 bytes a thread
+// with an integer divide per element: the code load, a few KB in flight
+// per SM, was most of its 0.039 ms.  Now:
+//
+//   * Persistent CTAs, as many as the plan fits on the card (CTAs an SM
+//     from shared memory, threads and registers, at most one per tile),
+//     walk tiles blockIdx.x, += gridDim.x of `tile_rows` rows, a multiple
+//     of 4, so that a tile's codes -- one contiguous span of tile_rows * w0
+//     int32 words -- start 16-byte aligned whatever w0.
+//   * At entry a CTA copies the packed tables [rows, max_entries] (narrow
+//     dtype), every mapping layer's map and the layer descriptors into
+//     shared memory by cp.async, in one group with its first tile's codes,
+//     and keeps them.
+//   * Codes arrive by 16-byte cp.async into one of two int32 stages: tile
+//     t+1's copy is in flight while tile t's layers run.  Layer 0 reads its
+//     fan-in codes from the stage itself (rows w0 words apart); its codes
+//     and every later layer's go into two activation tiles (uint8/16/32)
+//     whose rows are a_pad codes apart (an odd number of words for uint8).
+//     A pass narrowing the stage into such a tile first, and one barrier
+//     more, took 0.4 of 6.9 us on an H100 at nid's 1024-row block.
+//   * Layers as in K2: a work item is kGroup units of one row, loaded side
+//     by side; consecutive threads take consecutive rows, so that a warp's
+//     map and table reads are broadcasts and its activation reads fall in
+//     distinct banks.  One __syncthreads per layer.  The last layer's
+//     items run along units, so that its int32 codes store coalesced.
 // ---------------------------------------------------------------------------
+constexpr int kResidentThreads = 256;
+
+// One layer of K1 for the `rows` rows of a tile: fan-in codes from h (rows
+// `pitch` codes apart), codes into hn (rows a_pad apart) or, for the last
+// layer, to out.
+template <typename TabT, typename InT, typename ActT>
+__device__ inline void resident_layer(const int32_t* d, bool last,
+                                      const TabT* s_tab, const int32_t* s_map,
+                                      int max_entries, const InT* h, int pitch,
+                                      ActT* hn, int a_pad, int rows, int b0,
+                                      int32_t* __restrict__ out) {
+  const int units = d[D_UNITS];
+  const int entries = d[D_ENTRIES];
+  const int fan_in = d[D_FAN_IN];
+  const int bits = d[D_BITS];
+  const bool assemble = d[D_ASSEMBLE] != 0;
+  const TabT* tab = s_tab + static_cast<size_t>(d[D_ROW_OFF]) * max_entries;
+  const int32_t* map = assemble ? nullptr : s_map + d[D_MAP_OFF];
+  const int groups = (units + kGroup - 1) / kGroup;
+  const int items = rows * groups;
+  for (int i = threadIdx.x; i < items; i += blockDim.x) {
+    int r, grp;
+    if (last) {                      // along units: coalesced stores
+      r = i / groups;
+      grp = i - r * groups;
+    } else {                         // along rows: broadcast map reads
+      grp = i / rows;
+      r = i - grp * rows;
+    }
+    const int k0 = grp * kGroup;
+    int val[kGroup];
+    group_lookup(h + static_cast<size_t>(r) * pitch, tab, map, max_entries,
+                 entries, fan_in, bits, assemble, 0, k0, units, val);
+    if (last) {
+      int32_t* o = out + static_cast<size_t>(b0 + r) * units + k0;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        if (k0 + j < units) o[j] = val[j];
+    } else {
+      ActT v[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        v[j] = static_cast<ActT>(k0 + j < units ? val[j] : 0);
+      using P = typename Pack<ActT>::type;
+      memcpy(hn + static_cast<size_t>(r) * a_pad + k0, v, sizeof(P));
+    }
+  }
+}
+
 template <typename TabT, typename ActT>
-__global__ void cascade_resident_kernel(
-    const int32_t* __restrict__ codes, const TabT* __restrict__ tables,
-    const int32_t* __restrict__ maps, const int32_t* __restrict__ desc,
-    int n_layers, int B, int w0, int max_entries, int a_dim,
-    long long tables_elems, long long maps_words, int block_b,
-    int32_t* __restrict__ out) {
+__global__ void __launch_bounds__(kResidentThreads)
+cascade_resident_kernel(const int32_t* __restrict__ codes,
+                        const TabT* __restrict__ tables,
+                        const int32_t* __restrict__ maps,
+                        const int32_t* __restrict__ desc, int n_layers, int B,
+                        int w0, int max_entries, int a_pad,
+                        long long tables_elems, long long maps_words,
+                        int tile_rows, int32_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t tab_bytes = align16(static_cast<size_t>(tables_elems) * sizeof(TabT));
   const size_t map_bytes = align16(static_cast<size_t>(maps_words) * 4);
-  const size_t act_bytes = align16(static_cast<size_t>(block_b) * a_dim * sizeof(ActT));
-  TabT* s_tab = reinterpret_cast<TabT*>(smem);
-  int32_t* s_map = reinterpret_cast<int32_t*>(smem + tab_bytes);
-  ActT* h = reinterpret_cast<ActT*>(smem + tab_bytes + map_bytes);
-  ActT* hn = reinterpret_cast<ActT*>(smem + tab_bytes + map_bytes + act_bytes);
+  const size_t desc_bytes = align16(static_cast<size_t>(n_layers) * kDescInts * 4);
+  const size_t stage_bytes = align16(static_cast<size_t>(tile_rows) * w0 * 4);
+  const size_t act_bytes =
+      align16(static_cast<size_t>(tile_rows) * a_pad * sizeof(ActT));
+  const TabT* s_tab = reinterpret_cast<const TabT*>(smem);
+  const int32_t* s_map = reinterpret_cast<const int32_t*>(smem + tab_bytes);
+  unsigned char* s_desc = smem + tab_bytes + map_bytes;
+  // two code stages, then two activation tiles; stage / tile i is picked
+  // by a select, not an indexed array (which would live in local memory)
+  unsigned char* s_stage = s_desc + desc_bytes;
+  ActT* h0 = reinterpret_cast<ActT*>(s_stage + 2 * stage_bytes);
+  ActT* h1 = reinterpret_cast<ActT*>(s_stage + 2 * stage_bytes + act_bytes);
+  const int n_tiles = (B + tile_rows - 1) / tile_rows;
+  auto fetch = [&](int tile, int st) {
+    const int b0 = tile * tile_rows;
+    const int rows = min(tile_rows, B - b0);
+    async_copy(s_stage + (st ? stage_bytes : 0),
+               codes + static_cast<size_t>(b0) * w0,
+               static_cast<size_t>(rows) * w0 * 4);
+  };
 
-  const int b0 = blockIdx.x * block_b;
-  const int rows = min(block_b, B - b0);
-  copy_bytes(smem, reinterpret_cast<const unsigned char*>(tables),
-             static_cast<size_t>(tables_elems) * sizeof(TabT));
-  copy_bytes(reinterpret_cast<unsigned char*>(s_map),
-             reinterpret_cast<const unsigned char*>(maps),
-             static_cast<size_t>(maps_words) * 4);
-  load_codes(h, codes, b0, rows, w0, a_dim);
-  __syncthreads();
-
-  for (int l = 0; l < n_layers; ++l) {
-    const int32_t* d = desc + l * kDescInts;
-    const int units = d[D_UNITS];
-    const int entries = d[D_ENTRIES];
-    const int row_off = d[D_ROW_OFF];
-    const int fan_in = d[D_FAN_IN];
-    const int bits = d[D_BITS];
-    const bool assemble = d[D_ASSEMBLE] != 0;
-    const int map_off = d[D_MAP_OFF];
-    const bool last = l == n_layers - 1;
-    const int items = rows * units;
-    for (int i = threadIdx.x; i < items; i += blockDim.x) {
-      const int r = i / units;
-      const int u = i - r * units;
-      const int32_t* src = assemble ? nullptr : s_map + map_off + u * fan_in;
-      int a = form_address(h + static_cast<size_t>(r) * a_dim, src, u, fan_in, bits);
-      a = min(a, entries - 1);
-      const int v = static_cast<int>(
-          s_tab[static_cast<size_t>(row_off + u) * max_entries + a]);
-      if (last) {
-        out[static_cast<size_t>(b0 + r) * units + u] = v;
-      } else {
-        hn[static_cast<size_t>(r) * a_dim + u] = static_cast<ActT>(v);
-      }
-    }
+  int tile = blockIdx.x;
+  if (tile >= n_tiles) return;
+  async_copy(smem, tables, static_cast<size_t>(tables_elems) * sizeof(TabT));
+  async_copy(smem + tab_bytes, maps, static_cast<size_t>(maps_words) * 4);
+  async_copy(s_desc, desc, static_cast<size_t>(n_layers) * kDescInts * 4);
+  fetch(tile, 0);
+  cp_async_commit();
+  for (int k = 0; tile < n_tiles; tile += gridDim.x, ++k) {
+    cp_async_wait_all();
+    // this tile's codes (and the tables) everywhere; every thread is past
+    // the last tile's layers, so the other stage and h are free
     __syncthreads();
-    ActT* t = h;
-    h = hn;
-    hn = t;
+    if (tile + static_cast<int>(gridDim.x) < n_tiles) {
+      fetch(tile + gridDim.x, (k + 1) & 1);
+      cp_async_commit();
+    }
+    const int b0 = tile * tile_rows;
+    const int rows = min(tile_rows, B - b0);
+    for (int l = 0; l < n_layers; ++l) {
+      const int32_t* d = reinterpret_cast<const int32_t*>(s_desc) + l * kDescInts;
+      const bool last = l == n_layers - 1;
+      if (l == 0)
+        resident_layer<TabT, int32_t, ActT>(
+            d, last, s_tab, s_map, max_entries,
+            reinterpret_cast<const int32_t*>(s_stage +
+                                             ((k & 1) ? stage_bytes : 0)),
+            w0, h0, a_pad, rows, b0, out);
+      else
+        resident_layer<TabT, ActT, ActT>(d, last, s_tab, s_map, max_entries,
+                                         (l & 1) ? h0 : h1, a_pad,
+                                         (l & 1) ? h1 : h0, a_pad, rows, b0,
+                                         out);
+      if (!last) __syncthreads();    // the layer's codes, for the next
+    }
   }
 }
 
@@ -231,50 +382,10 @@ __global__ void cascade_resident_kernel(
 //     current one's lookups run.
 // ---------------------------------------------------------------------------
 constexpr int kClusterThreads = 512;
-constexpr int kGroup = 4;     // units per work item: one vector store per peer
-
 // Units of a layer of n units that each CTA of a C-CTA cluster owns.
 __host__ __device__ inline int cluster_share(int n, int cluster) {
   return ((n + cluster - 1) / cluster + kGroup - 1) / kGroup * kGroup;
 }
-
-__device__ inline unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Block-wide asynchronous copy of n bytes into shared dst (16 B aligned):
-// 16 bytes a thread where src allows it, else 4, else plain byte copies.
-__device__ inline void async_copy(unsigned char* dst, const void* src,
-                                  size_t n) {
-  const unsigned char* s = static_cast<const unsigned char*>(src);
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  if (a % 16 == 0 && n % 16 == 0) {
-    for (size_t i = threadIdx.x; i < n / 16; i += blockDim.x)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                   :: "r"(smem_u32(dst + 16 * i)), "l"(s + 16 * i) : "memory");
-  } else if (a % 4 == 0 && n % 4 == 0) {
-    for (size_t i = threadIdx.x; i < n / 4; i += blockDim.x)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                   :: "r"(smem_u32(dst + 4 * i)), "l"(s + 4 * i) : "memory");
-  } else {
-    for (size_t i = threadIdx.x; i < n; i += blockDim.x) dst[i] = s[i];
-  }
-}
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ inline void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-__device__ inline void cp_async_wait_one() {     // all but the newest group
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// kGroup codes as one store.
-template <typename ActT> struct Pack;
-template <> struct Pack<uint8_t> { using type = uint32_t; };
-template <> struct Pack<uint16_t> { using type = uint2; };
-template <> struct Pack<uint32_t> { using type = uint4; };
 
 // v into `local` (kGroup-aligned columns of an activation tile) of every
 // CTA of the cluster (the input codes).
@@ -318,41 +429,15 @@ __device__ inline void lookup_units(cg::cluster_group& cluster,
     const int grp = i / rows;
     const int r = i - grp * rows;
     const int k0 = grp * kGroup;
-    const ActT* hr = h + static_cast<size_t>(r) * a_pad;
-    // the group's units side by side, so that their loads are independent
-    // (a unit past n repeats the last one, and is not stored)
-    int kk[kGroup], a[kGroup];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      kk[j] = min(k0 + j, n - 1);
-      a[j] = 0;
-    }
-    if (assemble) {
-      for (int f = 0; f < fan_in; ++f) {
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j)
-          a[j] = (a[j] << bits) +
-                 static_cast<int>(hr[(lo + u0 + kk[j]) * fan_in + f]);
-      }
-    } else {
-      for (int f = 0; f < fan_in; ++f) {
-        int src[kGroup];
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j) src[j] = map[kk[j] * fan_in + f];
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j)
-          a[j] = (a[j] << bits) + static_cast<int>(hr[src[j]]);
-      }
-    }
+    int val[kGroup];
+    group_lookup(h + static_cast<size_t>(r) * a_pad, tab, map, max_entries,
+                 entries, fan_in, bits, assemble, lo + u0, k0, n, val);
     ActT v[kGroup];
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
-      const int val = static_cast<int>(
-          tab[static_cast<size_t>(kk[j]) * max_entries +
-              min(a[j], entries - 1)]);
-      v[j] = static_cast<ActT>(k0 + j < n ? val : 0);
+      v[j] = static_cast<ActT>(k0 + j < n ? val[j] : 0);
       if (last && k0 + j < n)
-        out[static_cast<size_t>(b0 + r) * units + lo + u0 + k0 + j] = val;
+        out[static_cast<size_t>(b0 + r) * units + lo + u0 + k0 + j] = val[j];
     }
     if (!last) {
       using P = typename Pack<ActT>::type;
@@ -553,25 +638,46 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// Shared memory K1's layout needs (lut_cascade.resident_smem_bytes).
+template <typename TabT, typename ActT>
+size_t resident_smem(int n_layers, int w0, int a_pad, long long tables_elems,
+                     long long maps_words, int tile_rows) {
+  return align16(static_cast<size_t>(tables_elems) * sizeof(TabT)) +
+         align16(static_cast<size_t>(maps_words) * 4) +
+         align16(static_cast<size_t>(n_layers) * kDescInts * 4) +
+         2 * align16(static_cast<size_t>(tile_rows) * w0 * 4) +
+         2 * align16(static_cast<size_t>(tile_rows) * a_pad * sizeof(ActT));
+}
+
 template <typename TabT, typename ActT>
 cudaError_t launch_resident(const void* codes, const void* tables,
                             const void* maps, const void* desc, int n_layers,
-                            int B, int w0, int max_entries, int a_dim,
+                            int B, int w0, int max_entries, int a_pad,
                             long long tables_elems, long long maps_words,
-                            int block_b, void* out, cudaStream_t stream) {
-  const size_t smem = align16(static_cast<size_t>(tables_elems) * sizeof(TabT)) +
-                      align16(static_cast<size_t>(maps_words) * 4) +
-                      2 * align16(static_cast<size_t>(block_b) * a_dim * sizeof(ActT));
+                            int tile_rows, int grid, long long smem, void* out,
+                            cudaStream_t stream) {
+  if (static_cast<size_t>(smem) <
+      resident_smem<TabT, ActT>(n_layers, w0, a_pad, tables_elems, maps_words,
+                                tile_rows))
+    return cudaErrorInvalidValue;
   auto kernel = cascade_resident_kernel<TabT, ActT>;
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = allow_smem(kernel, static_cast<size_t>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((B + block_b - 1) / block_b);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kResidentThreads, static_cast<size_t>(smem), stream>>>(
       static_cast<const int32_t*>(codes), static_cast<const TabT*>(tables),
       static_cast<const int32_t*>(maps), static_cast<const int32_t*>(desc),
-      n_layers, B, w0, max_entries, a_dim, tables_elems, maps_words, block_b,
+      n_layers, B, w0, max_entries, a_pad, tables_elems, maps_words, tile_rows,
       static_cast<int32_t*>(out));
   return cudaGetLastError();
+}
+
+template <typename TabT, typename ActT>
+cudaError_t resident_occupancy(long long smem, int* n) {
+  auto kernel = cascade_resident_kernel<TabT, ActT>;
+  cudaError_t err = allow_smem(kernel, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, kernel, kResidentThreads, static_cast<size_t>(smem));
 }
 
 template <typename TabT, typename ActT>
@@ -648,29 +754,48 @@ cudaError_t streamed_max_clusters(int ring, int cluster, long long smem,
 
 extern "C" {
 
-int lut_lookup_launch(const void* table, const void* addr, void* out, int B,
-                      int U, int T, int unit_tile, int block_b, int staged,
-                      void* stream) {
-  const size_t smem = staged ? static_cast<size_t>(unit_tile) * T * 4 : 0;
-  cudaError_t err = allow_smem(lut_lookup_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((U + unit_tile - 1) / unit_tile, (B + block_b - 1) / block_b);
-  lut_lookup_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+// K3 over the n = B * U outputs: `grid` CTAs of `threads` threads, vec
+// (1 or 4) outputs a thread; vec 4 needs addr and out 16-byte aligned.
+int lut_lookup_launch(const void* table, const void* addr, void* out,
+                      long long n, int U, int T, int threads, int vec,
+                      int grid, void* stream) {
+  if (threads < 1 || threads > kLookupMaxThreads || grid < 1 || U < 1 ||
+      T < 1 || (vec != 1 && vec != 4) ||
+      static_cast<long long>(grid) * threads * vec < n ||
+      (vec == 4 && (reinterpret_cast<uintptr_t>(addr) % 16 != 0 ||
+                    reinterpret_cast<uintptr_t>(out) % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = vec == 4 ? lut_lookup_kernel<4> : lut_lookup_kernel<1>;
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(addr),
-      static_cast<int32_t*>(out), B, U, T, unit_tile, block_b, staged);
+      static_cast<int32_t*>(out), n, U, T);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1: `grid` persistent CTAs walking tiles of `tile_rows` rows (a multiple
+// of 4); smem: the bytes of the wrapper's plan, at least what the layout
+// needs.  a_pad: the activation tile's width, a multiple of 4.
 int lut_cascade_resident_launch(const void* codes, const void* tables,
                                 int table_itemsize, const void* maps,
                                 const void* desc, int n_layers, int B, int w0,
-                                int max_entries, int a_dim, int act_itemsize,
+                                int max_entries, int a_pad, int act_itemsize,
                                 long long tables_elems, long long maps_words,
-                                int block_b, void* out, void* stream) {
+                                int tile_rows, int grid, long long smem,
+                                void* out, void* stream) {
+  if (tile_rows < 4 || tile_rows % 4 != 0 || grid < 1 || a_pad % kGroup != 0 ||
+      a_pad < w0)
+    return static_cast<int>(cudaErrorInvalidValue);
   LUT_DISPATCH(launch_resident, table_itemsize, act_itemsize,
-               codes, tables, maps, desc, n_layers, B, w0, max_entries, a_dim,
-               tables_elems, maps_words, block_b, out,
+               codes, tables, maps, desc, n_layers, B, w0, max_entries, a_pad,
+               tables_elems, maps_words, tile_rows, grid, smem, out,
                static_cast<cudaStream_t>(stream));
+}
+
+// CTAs of K1 with `smem` bytes that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), written to *n.
+int lut_cascade_resident_occupancy(int table_itemsize, int act_itemsize,
+                                   long long smem, int* n) {
+  LUT_DISPATCH(resident_occupancy, table_itemsize, act_itemsize, smem, n);
 }
 
 // K2 over clusters of `cluster` CTAs (<= 8), `n_clusters` of them walking

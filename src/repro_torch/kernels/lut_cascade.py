@@ -5,12 +5,16 @@ modes.  The TPU kernels formed addresses with an f32 matmul against the
 plan's ``amat`` and looked up with a one-hot contraction; on Hopper both
 become integer work on shared memory (``csrc/lut_kernels.cu``):
 
-* **K1, resident** (``cascade_resident_kernel``): one CTA per batch tile;
-  the packed tables (narrow dtype) and every ``map_<l>`` are copied into
-  shared memory once, then each layer gathers its fan-in codes from the
-  activation tile, forms the address with shifts and reads
-  ``tab[off+u][addr]``.  Two activation tiles ``h``/``h_next`` (uint8 when
-  every code fits, else uint16/uint32) alternate between layers.
+* **K1, resident** (``cascade_resident_kernel``): every table in one
+  CTA's shared memory.  Persistent CTAs, as many as :func:`plan_resident`
+  fits on the card, copy the packed tables (narrow dtype) and every
+  ``map_<l>`` into shared memory once and walk batch tiles of a few rows;
+  each tile's int32 codes arrive by 16-byte ``cp.async`` into one of two
+  stages (the next tile's copy in flight while this one's layers run).
+  Each layer gathers its fan-in codes -- layer 0 from the int32 stage,
+  later layers from activation tiles (uint8 when every code fits, else
+  uint16/uint32) -- forms the address with shifts and reads
+  ``tab[off+u][addr]``.
 * **K2, streamed** (``cascade_streamed_kernel``): for table sets beyond
   one block's shared memory, split over a thread-block cluster of up to 8
   CTAs (:func:`plan_cluster`).  The CTAs of a cluster share one batch
@@ -42,6 +46,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 from repro_torch.kernels import build
 
 LayerMeta = Tuple[int, int, int, int]
@@ -50,13 +55,19 @@ RESIDENT_LAUNCHES = build.counter("lut_cascade_resident")
 STREAMED_LAUNCHES = build.counter("lut_cascade_streamed")
 
 SMEM_PER_BLOCK = 232_448     # dynamic shared memory one Hopper block may use
-MAX_BLOCK_B = 64             # rows per CTA: more CTAs in flight beats wider tiles
+SMEM_PER_SM = 233_472        # shared memory of one SM (228 KB)
+SMEM_PER_CTA_RESERVED = 1024  # the runtime's own share of it, a resident CTA
+THREADS_PER_SM = 2048
+RESIDENT_THREADS = 256       # K1's CTA (kResidentThreads in the kernel)
+RESIDENT_MIN_ROWS = 4        # K1's rows a tile: a multiple of 4, from here
+RESIDENT_MAX_ROWS = 16       # ... to here (32 was slower in the plan sweep)
 CLUSTER_MAX = 8              # K2's CTAs a cluster (the portable limit)
 CLUSTER_SIZES = (4, 8)       # K2's cluster sizes, in the order plans try them
 CLUSTER_ROWS = 32            # K2's rows a cluster tile, at most
 CLUSTER_MIN_ROWS = 8         # fewer resident rows than this: take the ring
 CLUSTER_FEW_ROWS = 16        # a smaller cluster is taken at this many rows
-GROUP = 4                    # units a K2 work item (kGroup in the kernel)
+GROUP = 4                    # units a K1/K2 work item (kGroup in the kernel)
+DESC_INTS = 8                # int32s a layer descriptor (kDescInts)
 
 
 def layers_v1(layers: Sequence[Sequence[int]]) -> Tuple[LayerMeta, ...]:
@@ -175,14 +186,19 @@ def act_width(layers: Sequence[Sequence[int]]) -> int:
 
 
 def resident_smem_bytes(layers: Sequence[Sequence[int]], table_itemsize: int,
-                        block_b: int) -> int:
-    """Shared memory K1 needs: packed tables, maps, two activation tiles."""
-    l4 = layers_v1(layers)
-    tab = sum(u for _, u, _, _ in l4) * max(e for _, _, e, _ in l4)
+                        rows: int, max_entries: Optional[int] = None) -> int:
+    """Shared memory K1 needs, as the kernel lays it out: the packed tables
+    (``max_entries`` columns, by default the widest layer's), the maps, the
+    layer descriptors, two int32 code stages of ``rows`` input rows and two
+    activation tiles of ``rows`` rows of :func:`_a_pad` codes."""
+    max_entries = max_entries or max(int(l[2]) for l in layers)
+    tab = max(int(l[3]) + int(l[1]) for l in layers) * max_entries
     maps = sum(int(l[1]) * int(l[4]) for l in layers if not int(l[6]))
-    act = block_b * act_width(layers) * act_itemsize(layers)
+    desc = len(layers) * DESC_INTS * 4
+    stage = rows * int(layers[0][0]) * 4
+    act = rows * _a_pad(layers) * act_itemsize(layers)
     return (_align16(tab * table_itemsize) + _align16(maps * 4)
-            + 2 * _align16(act))
+            + _align16(desc) + 2 * _align16(stage) + 2 * _align16(act))
 
 
 def cluster_share(n: int, cluster: int) -> int:
@@ -305,16 +321,73 @@ def plan_cluster(layers: Tuple[Tuple[int, ...], ...], table_itemsize: int, *,
                      f"shared memory (cluster {cluster}, rows {rows})")
 
 
-def _fit_block_b(smem_of) -> int:
-    """Largest power-of-two row count <= ``MAX_BLOCK_B`` whose tiles fit
-    one block's shared memory."""
-    bb = MAX_BLOCK_B
-    while bb > 1 and smem_of(bb) > SMEM_PER_BLOCK:
-        bb //= 2
-    if smem_of(bb) > SMEM_PER_BLOCK:
-        raise ValueError(f"lut_cascade: {smem_of(bb)} B of shared memory "
-                         f"for one row exceeds {SMEM_PER_BLOCK} B")
-    return bb
+@dataclasses.dataclass(frozen=True)
+class ResidentPlan:
+    """How K1 runs a batch: ``grid`` persistent CTAs of
+    :data:`RESIDENT_THREADS` threads walk ``tiles`` tiles of ``rows`` rows
+    (a multiple of 4, so that every tile's int32 codes start 16-byte
+    aligned); ``ctas_per_sm`` of them fit one SM; ``a_pad`` is the
+    activation row pitch, ``smem_bytes`` what one CTA needs."""
+
+    rows: int
+    ctas_per_sm: int
+    grid: int
+    tiles: int
+    a_pad: int
+    smem_bytes: int
+
+
+def resident_ctas_per_sm(smem_bytes: int) -> int:
+    """K1's CTAs that one SM holds at once by shared memory and threads
+    (the card's registers may hold fewer: :func:`resident_plan`)."""
+    return min(THREADS_PER_SM // RESIDENT_THREADS,
+               SMEM_PER_SM // (smem_bytes + SMEM_PER_CTA_RESERVED))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_resident(layers: Tuple[Tuple[int, ...], ...], table_itemsize: int,
+                  batch: int, sms: int, *, max_entries: Optional[int] = None,
+                  rows: Optional[int] = None,
+                  ctas_per_sm: Optional[int] = None) -> ResidentPlan:
+    """K1's plan for v2 ``layers`` (a tuple of tuples), a table itemsize, a
+    batch and the card's SM count.  By default the fewest rows a tile (a
+    multiple of 4 from :data:`RESIDENT_MIN_ROWS` to
+    :data:`RESIDENT_MAX_ROWS`) that leave at most one tile an SM, fewer
+    where the shared memory does not hold them; then as many CTAs as fit
+    the card (``sms`` x CTAs an SM), at most one a tile.  ``rows`` and
+    ``ctas_per_sm`` pin either (the plan sweep; a pinned CTA count may not
+    exceed what fits).  Raises when not even :data:`RESIDENT_MIN_ROWS` rows
+    fit one block's shared memory."""
+    if not is_v2_layers(layers):
+        raise ValueError("lut_cascade: K1 needs v2 layer metadata")
+    if batch < 1 or sms < 1:
+        raise ValueError(f"lut_cascade: batch {batch}, sms {sms}")
+
+    def smem(r):
+        return resident_smem_bytes(layers, table_itemsize, r, max_entries)
+
+    if rows is None:
+        want = -(-batch // sms)
+        r = min(RESIDENT_MAX_ROWS, max(RESIDENT_MIN_ROWS, -(-want // 4) * 4))
+        while r > RESIDENT_MIN_ROWS and smem(r) > SMEM_PER_BLOCK:
+            r -= 4
+    else:
+        r = int(rows)
+        if r < 4 or r % 4:
+            raise ValueError(f"lut_cascade: K1 rows {r} not a multiple of 4")
+    need = smem(r)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(f"lut_cascade: K1 needs {need} B of shared memory at "
+                         f"{r} rows, over {SMEM_PER_BLOCK} B")
+    fit = resident_ctas_per_sm(need)
+    if ctas_per_sm is not None:
+        if not 1 <= int(ctas_per_sm) <= fit:
+            raise ValueError(f"lut_cascade: {ctas_per_sm} K1 CTAs an SM, "
+                             f"{fit} fit")
+        fit = int(ctas_per_sm)
+    tiles = -(-batch // r)
+    return ResidentPlan(rows=r, ctas_per_sm=fit, grid=min(sms * fit, tiles),
+                        tiles=tiles, a_pad=_a_pad(layers), smem_bytes=need)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,23 +452,73 @@ def _check_codes(codes: torch.Tensor, ops: CascadeOperands) -> None:
 
 def lut_cascade_resident(codes: torch.Tensor,
                          ops: CascadeOperands) -> torch.Tensor:
-    """Launch K1: ``[B, W0]`` int32 codes -> ``[B, n_out]`` int32."""
+    """Launch K1 on the plan :func:`plan_resident` makes for this batch and
+    card: ``[B, W0]`` int32 codes -> ``[B, n_out]`` int32."""
+    _check_codes(codes, ops)
+    b = codes.shape[0]
+    if b == 0:
+        return torch.empty((0, ops.layers[-1][1]), dtype=torch.int32,
+                           device=codes.device)
+    return launch_resident(codes, ops,
+                           resident_plan(ops, b, codes.device.index or 0))
+
+
+def resident_plan(ops: CascadeOperands, batch: int,
+                  device_index: int) -> ResidentPlan:
+    """K1's plan on a card: :func:`plan_resident` with the card's SM count,
+    its CTAs an SM capped at what the runtime reports for the kernel
+    (:func:`resident_occupancy`: registers may hold fewer CTAs than shared
+    memory and threads)."""
+    isz = ops.tables.element_size()
+    plan = plan_resident(ops.layers, isz, batch,
+                         _device.sm_count(device_index),
+                         max_entries=ops.tables.shape[1])
+    fit = resident_occupancy(device_index, isz, act_itemsize(ops.layers),
+                             plan.smem_bytes)
+    if fit < plan.ctas_per_sm:
+        plan = plan_resident(ops.layers, isz, batch,
+                             _device.sm_count(device_index),
+                             max_entries=ops.tables.shape[1], rows=plan.rows,
+                             ctas_per_sm=fit)
+    return plan
+
+
+@functools.lru_cache(maxsize=64)
+def resident_occupancy(device_index: int, table_itemsize: int, act_size: int,
+                       smem: int) -> int:
+    """CTAs of K1 with ``smem`` bytes that one SM of the card holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = build.library("lut_kernels")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.lut_cascade_resident_occupancy(table_itemsize, act_size,
+                                                 smem, ctypes.byref(n))
+    build.check(err, "lut_cascade_resident (occupancy)")
+    return n.value
+
+
+def launch_resident(codes: torch.Tensor, ops: CascadeOperands,
+                    plan: ResidentPlan) -> torch.Tensor:
+    """Launch K1 on an explicit :class:`ResidentPlan` (the plan sweep's
+    entry; :func:`lut_cascade_resident` is the path's)."""
     _check_codes(codes, ops)
     layers, isz = ops.layers, ops.tables.element_size()
-    bb = _fit_block_b(lambda r: resident_smem_bytes(layers, isz, r))
     b = codes.shape[0]
+    if plan.tiles != -(-b // plan.rows):
+        raise ValueError(f"lut_cascade_resident: a plan for {plan.tiles} "
+                         f"tiles of {plan.rows} rows, batch {b}")
     out = torch.empty((b, layers[-1][1]), dtype=torch.int32,
                       device=codes.device)
-    if b == 0:
-        return out
+    tab_rows = max(l[3] + l[1] for l in layers)
     lib = build.library("lut_kernels")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.lut_cascade_resident_launch(
             codes.data_ptr(), ops.tables.data_ptr(), isz, ops.maps.data_ptr(),
             ops.desc.data_ptr(), len(layers), b, layers[0][0],
-            ops.tables.shape[1], act_width(layers), act_itemsize(layers),
-            ops.tables.numel(), ops.map_words, bb, out.data_ptr(), stream)
+            ops.tables.shape[1], plan.a_pad, act_itemsize(layers),
+            tab_rows * ops.tables.shape[1], ops.map_words, plan.rows,
+            plan.grid, plan.smem_bytes, out.data_ptr(), stream)
     build.check(err, "lut_cascade_resident")
     RESIDENT_LAUNCHES.add()
     return out

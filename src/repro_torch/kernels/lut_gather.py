@@ -3,35 +3,70 @@
 Replaces ``repro/kernels/lut_gather.py`` ``lut_lookup_pallas`` /
 ``_lut_kernel``, which contracted a one-hot tile with the table on the MXU.
 On Hopper the lookup is an indexed load: the CUDA kernel
-(``csrc/lut_kernels.cu`` ``lut_lookup_kernel``) tiles (unit, batch), stages
-the unit tile's table rows in shared memory and gathers from there.  It is
-bound by bytes (addresses in, codes out, the table once), not operations.
+(``csrc/lut_kernels.cu`` ``lut_lookup_kernel``) is a barrier-free gather
+over the flat ``[B * U]`` index: each thread loads four addresses as one
+16-byte vector, reads their table entries through the read-only cache and
+stores four codes as one vector.  Nothing is staged in shared memory and
+there is no barrier: a layer's table (256 B a unit at nid's 64 entries) is
+read where it lies, through L1 and L2.  Its byte floor is a fraction of a
+microsecond, below any launch, so its yardstick is an empty kernel's
+device time on the same card.
 
 On a CPU tensor the plain version runs; on a CUDA tensor the kernel runs or
 the wrapper raises.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
+from repro_torch import device as _device
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import lut_lookup_ref
 
 LAUNCHES = build.counter("lut_lookup")
 
-SMEM_STAGE_BUDGET = 48 * 1024   # staged table rows per CTA
-MAX_UNIT_TILE = 32
-BLOCK_B = 64
+VEC = 4                      # outputs a thread (one 16-byte addr/out vector)
+MIN_THREADS = 32             # CTA sizes the plan picks from: powers of two
+MAX_THREADS = 256            # (kLookupMaxThreads in the kernel)
+MAX_OUTPUTS = 2 ** 31 - 2 ** 16   # B * U the kernel's int arithmetic takes
 
 
-def tile_shape(entries: int):
-    """``(unit_tile, block_b, staged)`` for a table of ``entries`` columns:
-    as many rows as fit the staging budget (at most 32); tables whose single
-    row outgrows the budget are read through the cache unstaged."""
-    row = entries * 4
-    if row > SMEM_STAGE_BUDGET:
-        return MAX_UNIT_TILE, BLOCK_B, False
-    return max(1, min(MAX_UNIT_TILE, SMEM_STAGE_BUDGET // row)), BLOCK_B, True
+@dataclasses.dataclass(frozen=True)
+class LookupPlan:
+    """K3's launch: ``grid`` CTAs of ``threads`` threads, ``vec`` outputs a
+    thread."""
+
+    threads: int
+    vec: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def tile_shape(entries: int, units: int, batch: int, sms: int,
+               aligned: bool = True) -> LookupPlan:
+    """K3's launch for a ``[units, entries]`` table and ``batch`` rows on a
+    card of ``sms`` SMs: :data:`VEC` outputs a thread where addr and out
+    are 16-byte ``aligned`` (else 1), and the largest power-of-two CTA
+    (:data:`MIN_THREADS` to :data:`MAX_THREADS`) that still gives every SM a
+    CTA.  The table's width does not enter: there is no staged route (its
+    reads go through the cache at every width the tests take, up to 32768
+    entries)."""
+    if min(entries, units, batch, sms) < 1:
+        raise ValueError(f"lut_lookup: table [{units}, {entries}], batch "
+                         f"{batch}, sms {sms}")
+    n = units * batch
+    if n > MAX_OUTPUTS:
+        raise ValueError(f"lut_lookup: {n} outputs exceed {MAX_OUTPUTS}")
+    vec = VEC if aligned else 1
+    per_sm = -(-n // (vec * sms))
+    threads = MIN_THREADS
+    while threads * 2 <= min(MAX_THREADS, per_sm):
+        threads *= 2
+    return LookupPlan(threads=threads, vec=vec,
+                      grid=-(-n // (threads * vec)))
 
 
 def lut_lookup_plain(table: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
@@ -57,13 +92,14 @@ def lut_lookup_cuda(table: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, u), dtype=torch.int32, device=addr.device)
     if b == 0 or u == 0:
         return out
-    unit_tile, block_b, staged = tile_shape(t)
+    plan = tile_shape(t, u, b, _device.sm_count(addr.device.index or 0),
+                      addr.data_ptr() % 16 == 0)
     lib = build.library("lut_kernels")
     with torch.cuda.device(addr.device):
         stream = torch.cuda.current_stream(addr.device).cuda_stream
         err = lib.lut_lookup_launch(table.data_ptr(), addr.data_ptr(),
-                                    out.data_ptr(), b, u, t, unit_tile,
-                                    block_b, int(staged), stream)
+                                    out.data_ptr(), b * u, u, t,
+                                    plan.threads, plan.vec, plan.grid, stream)
     build.check(err, "lut_lookup")
     LAUNCHES.add()
     return out

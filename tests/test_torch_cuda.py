@@ -544,3 +544,107 @@ def test_streamed_cluster_plans_bit_exact(cluster, rows, cuda):
     got = lut_cascade.launch_streamed(codes, ops, cplan)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _resident_ops(task, cuda, tdtype=None, seed=7):
+    cfg = paper_tasks.task_config(task)
+    plan = pipeline.CompiledLUTNetwork(
+        cfg, *_arrays(cfg, seed), device=cuda).compile_backend("fused").plan
+    layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
+    tables = plan.tensor("tables", cuda)
+    if tdtype is not None:
+        tables = tables.to(tdtype)
+    maps = [plan.tensor(f"map_{l}", cuda) if f"map_{l}" in plan.buffers
+            else None for l in range(len(layers))]
+    return layers, tables, maps, lut_cascade.prepare(tables, layers, maps)
+
+
+@pytest.mark.parametrize("task", ["nid", "jsc_openml"])
+def test_resident_kernel_bit_exact_and_counts(task, cuda):
+    """K1 on its default plan at ragged batches (ragged last tiles), one
+    launch a call; the plan's CTAs an SM are what the runtime reports, or
+    fewer where shared memory and threads say so."""
+    layers, tables, maps, ops = _resident_ops(task, cuda)
+    rs = np.random.RandomState(len(task))
+    for b in (1, 3, 33, 1023, 4097):
+        codes = torch.from_numpy(rs.randint(
+            0, 2 ** layers[0][5], (b, layers[0][0])).astype(np.int32)).to(cuda)
+        build.reset_counters()
+        got = lut_cascade.lut_cascade_resident(codes, ops)
+        torch.cuda.synchronize()
+        assert build.launch_counts()["lut_cascade_resident"] == 1
+        assert torch.equal(got, lut_cascade.lut_cascade_plain(
+            codes, tables, maps, layers))
+        cpu = lut_cascade.plan_resident(
+            layers, tables.element_size(), b,
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            max_entries=tables.shape[1])
+        plan = lut_cascade.resident_plan(ops, b, 0)
+        assert plan.rows == cpu.rows
+        assert plan.ctas_per_sm == min(cpu.ctas_per_sm,
+                                       lut_cascade.resident_occupancy(
+            0, tables.element_size(), lut_cascade.act_itemsize(layers),
+            plan.smem_bytes))
+
+
+@pytest.mark.parametrize("tdtype", [torch.int8, torch.int16, torch.int32])
+@pytest.mark.parametrize("bits", [6, 9, 17])
+def test_resident_kernel_table_and_activation_widths(tdtype, bits, cuda):
+    """int8/int16/int32 tables; uint8 (6-bit), uint16 (9-bit) and uint32
+    (17-bit) activation tiles, codes kept below each table's 64 entries."""
+    rs = np.random.RandomState(bits)
+    layers = ((20, 12, 64, 0, 1, bits, 0), (12, 8, 64, 12, 1, bits, 0),
+              (8, 4, 64, 20, 2, 3, 1))
+    tables = torch.from_numpy(rs.randint(0, 8, (24, 64))).to(tdtype).to(cuda)
+    maps = [torch.from_numpy(rs.randint(0, 20, (12, 1))).int().to(cuda),
+            torch.from_numpy(rs.randint(0, 12, (8, 1))).int().to(cuda), None]
+    assert lut_cascade.act_itemsize(layers) == {6: 1, 9: 2, 17: 4}[bits]
+    ops = lut_cascade.prepare(tables, layers, maps)
+    for b in (1, 5, 1023):
+        codes = torch.from_numpy(rs.randint(0, 64, (b, 20)).astype(
+            np.int32)).to(cuda)
+        got = lut_cascade.lut_cascade_resident(codes, ops)
+        torch.cuda.synchronize()
+        assert torch.equal(got, lut_cascade.lut_cascade_plain(
+            codes, tables, maps, layers))
+
+
+@pytest.mark.parametrize("rows,ctas,sms", [(4, 1, 1), (4, 1, 3), (8, 2, 5),
+                                           (32, 1, 2), (12, 1, 7)])
+def test_resident_kernel_persistent_grid_smaller_than_tiles(rows, ctas, sms,
+                                                            cuda):
+    """Grids of 1-10 CTAs walking 33-1025 tiles: each CTA's next tile's
+    codes load while its current one runs."""
+    layers, tables, maps, ops = _resident_ops("nid", cuda)
+    codes = torch.randint(0, 2, (4100, layers[0][0]), dtype=torch.int32,
+                          device=cuda)
+    plan = lut_cascade.plan_resident(layers, 1, 4100, sms, rows=rows,
+                                     ctas_per_sm=ctas)
+    assert plan.grid < plan.tiles
+    got = lut_cascade.launch_resident(codes, ops, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lut_cascade.lut_cascade_plain(codes, tables,
+                                                          maps, layers))
+
+
+@pytest.mark.parametrize("units", [1, 3, 9, 60, 2160])
+def test_lookup_kernel_shapes_and_clamped_addresses(units, cuda):
+    """K3 at U 1-2160, T 2-32768, B 1-4096, addresses outside [0, T)
+    clamped; a misaligned addr (an offset view) takes the scalar route;
+    one launch a call."""
+    rs = np.random.RandomState(units)
+    for entries in (2, 64, 4096, 32768):
+        if units * entries > 2 ** 24:
+            continue
+        table = torch.from_numpy(rs.randint(0, 1000, (units, entries)).astype(
+            np.int32)).to(cuda)
+        for b in (1, 3, 1024, 4096):
+            flat = torch.from_numpy(rs.randint(
+                -5, entries + 5, (b * units + 1,)).astype(np.int32)).to(cuda)
+            for addr in (flat[:-1].view(b, units), flat[1:].view(b, units)):
+                build.reset_counters()
+                got = lut_gather.lut_lookup_cuda(table, addr)
+                torch.cuda.synchronize()
+                assert build.launch_counts()["lut_lookup"] == 1
+                assert torch.equal(got, lut_gather.lut_lookup_plain(
+                    table, addr.clamp(0, entries - 1)))
