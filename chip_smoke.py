@@ -24,7 +24,15 @@ shapes, and drives both main paths:
   four slots through ``ServeEngine``, every layer's prefill attention
   through K5's wgmma kernel (slice 4); decode against prefill on the card,
   and a 2-layer f32 cut of it (K5's TF32 kernel, slice 6) on the card
-  against the CPU.
+  against the CPU;
+* stream serving and the hardware surfaces (slice 8): the recurrent
+  ``seqmnist_reduced`` cell trained on the card through
+  ``Toolflow(cell, tbptt=8)`` (K4), folded, saved and reloaded, then 1,024
+  concurrent streams x 49 steps served through ``StreamRouter`` on the
+  ``fused`` (K1) and ``pallas`` (K3) backends, every stream against the
+  offline scan on the card and the CPU; ``hw_report``, ``to_verilog``,
+  ``count_luts``, ``calibration_vs_rtl`` and ``dontcare.analyze`` of the
+  card-folded ``mnist`` artifact, its Verilog against a CPU load's.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
@@ -100,6 +108,18 @@ K4_ROUTES = ("unit_affine", "unit_affine_dense", "unit_affine_units",
 K4_KERNELS = {"unit_affine_dense": "unit_affine_dense_kernel",
               "unit_affine_units": "unit_affine_units_kernel",
               "unit_affine_dx": "unit_affine_dx"}
+# the main path each kernel's launches are read from (a kernel that several
+# paths run has a row for each)
+PATHS = {
+    "lut_cascade_resident": "nid/fused",
+    "lut_cascade_streamed": "mnist/fused",
+    "lut_lookup": "nid/pallas",
+    "unit_affine_dense": "mnist toolflow",
+    "unit_affine_units": "mnist toolflow",
+    "unit_affine_dx": "mnist toolflow",
+    "flash_attention": "gemma-2b f32 cut",
+    "flash_attention_wgmma": "gemma-2b serve",
+}
 K4_GRAD_RTOL = 1e-4           # gradients: rtol, and atol 1e-5 x the largest
 K4_GRAD_ATOL = 1e-5           # |gradient| (summation order only)
 
@@ -153,29 +173,101 @@ def per_call_ms(fn, calls: int = 40, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def profile(fn, calls: int = 10):
-    """(wall s, {kernel name: (launches, device s)}) of ``calls`` calls
-    under torch.profiler; device times come from the CUDA trace."""
+TRACE_LEADS = (8, 64, 512)  # spin launches opening each try's session
+TRAIL_CYCLES = 20_000_000   # a spin of about 10 ms closing each session
+# host calls that start one device kernel, copy or fill apiece
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+LEAD_LOST: list = []   # how many spin launches each session's trace lost
+RETRACED: list = []    # each timing whose trace was incomplete, by try
+
+
+def profile(fn, calls: int = 10, lead: int = TRACE_LEADS[0]):
+    """(wall s, {kernel name: (launches, device s)}, lost) of ``calls``
+    calls under torch.profiler; device times come from the CUDA trace, and
+    ``lost`` counts the host's launch calls (``LAUNCH_CALLS``) whose device
+    work the trace does not hold.  Once the process has run a while, the
+    trace loses device work, mostly the first of a profiling session and
+    now and then a whole session's (torch 2.11, CUDA 12.8 on an H100), so
+    the session opens with ``lead`` spin-kernel launches and a sync and
+    closes with a long spin and a sync, all left out of the result;
+    ``traced_ms`` checks the counts that remain.  How many spin launches
+    each session lost is appended to ``LEAD_LOST``."""
     import torch
     from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(lead):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
+        torch.cuda._sleep(TRAIL_CYCLES)
+        torch.cuda.synchronize()
+    kernels, spun, launched, traced = {}, 0, -lead - 1, 0
     for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", None)):
+            launched += ev.count if ev.key in LAUNCH_CALLS else 0
+            continue
+        if "spin" in ev.key:
+            spun += ev.count
+            continue
+        traced += ev.count
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us and getattr(ev, "device_type", None) is not None and \
-                "CUDA" in str(ev.device_type):
+        if dev_us:
             kernels[ev.key] = (ev.count, dev_us * 1e-6)
-    return wall, kernels
+    LEAD_LOST.append(lead + 1 - spun)
+    return wall, kernels, launched - traced
+
+
+def _untraced(what: str, got) -> None:
+    """Record and print a device time that no try could measure."""
+    RETRACED.append({"kernel": what, "untraced": True})
+    print(f"device time of {what} not measured: no trace of "
+          f"{len(TRACE_LEADS)} held every launch (last: {got})", flush=True)
+
+
+def traced_ms(fn, sub: str, calls: int = 10, per_call: int = 1):
+    """Device ms per call of ``fn``'s kernels whose name holds ``sub``: their
+    traced time in ``profile(fn, calls)`` over the launches the trace
+    holds, times ``per_call``.  Only a trace that holds exactly ``calls *
+    per_call`` of them counts (a lost launch would read as a faster
+    kernel): an incomplete one is taken again with a longer lead, and
+    after ``TRACE_LEADS`` tries the time is None, not a number."""
+    for lead in TRACE_LEADS:
+        hits = [v for key, v in profile(fn, calls, lead)[1].items()
+                if sub in key]
+        n = sum(c for c, _ in hits)
+        if n == calls * per_call:
+            return sum(sec for _, sec in hits) * 1e3 / n * per_call
+        RETRACED.append({"kernel": sub, "lead": lead, "traced": n,
+                         "expected": calls * per_call,
+                         "lead_lost": LEAD_LOST[-1]})
+    _untraced(sub, f"{n} of {calls * per_call} launches")
+    return None
+
+
+def traced_all_ms(fn, calls: int = 10):
+    """(device ms per call, kernel names) of every kernel ``fn`` launches
+    (a library call's), tried as ``traced_ms`` does while the trace lacks
+    the device work of some launch call; (None, []) if no try held it
+    all."""
+    for lead in TRACE_LEADS:
+        _, prof, lost = profile(fn, calls, lead)
+        if prof and not lost:
+            return (sum(sec for _, sec in prof.values()) * 1e3 / calls,
+                    sorted(key[:120] for key in prof))
+        RETRACED.append({"kernel": "library", "lead": lead, "lost": lost,
+                         "lead_lost": LEAD_LOST[-1]})
+    _untraced("a library call", f"{lost} launch calls without device work")
+    return None, []
 
 
 def cascade_work(layers, batch: int, table_bytes: int, map_bytes: int):
@@ -630,7 +722,7 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
 
     # the device's idle share of one prefill of 1024 and one decode tick
     toks = torch.from_numpy(reqs[0].prompt[None]).to(dev)
-    wall_p, prof = profile(lambda: lm.prefill(params, cfg, toks, 2048),
+    wall_p, prof, _ = profile(lambda: lm.prefill(params, cfg, toks, 2048),
                            calls=1)
     busy = sum(sec for _, sec in prof.values())
     k5_hits = [v for key, v in prof.items()
@@ -645,7 +737,7 @@ def serve_gemma(dev, smi: str, seed: int) -> dict:
                               "k5_share_of_busy": k5 / busy}
     cache = eng.cache
     tok4 = torch.zeros((4, 1), dtype=torch.int32, device=dev)
-    wall_d, prof = profile(lambda: lm.decode_step(params, cfg, cache, tok4),
+    wall_d, prof, _ = profile(lambda: lm.decode_step(params, cfg, cache, tok4),
                            calls=1)
     busy_d = sum(sec for _, sec in prof.values())
     out["decode_profile"] = {"wall_s": wall_d, "device_busy_s": busy_d,
@@ -736,12 +828,10 @@ def k5_by_prompt(dev, seed: int, smi: str) -> dict:
         q, k, v = k5_inputs(1, 8, 1, s, s, 256, seed + s, dev, torch.bfloat16)
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
         fn = lambda: fa.flash_attention_wgmma_cuda(q, k, v)  # noqa: E731
-        _, prof = profile(fn)
-        dev_s = sum(sec for key, (_, sec) in prof.items()
-                    if "flash_attention_wgmma_kernel" in key)
-        out[s] = {"ms": per_call_ms(fn), "device_ms": dev_s * 1e3 / 10}
+        out[s] = {"ms": per_call_ms(fn), "device_ms": traced_ms(
+            fn, "flash_attention_wgmma_kernel")}
     print(f"K5 wgmma alone by prompt length (ms, device ms): "
-          f"{ {s: (round(v['ms'], 4), round(v['device_ms'], 4)) for s, v in out.items()} } "
+          f"{ {s: (round(v['ms'], 4), v['device_ms']) for s, v in out.items()} } "
           f"[{smi}]", flush=True)
     return out
 
@@ -761,15 +851,12 @@ def k5_tf32_d16(dev, seed: int, smi: str) -> dict:
     fn = lambda: fa.flash_attention_tf32_cuda(q, k, v)  # noqa: E731
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
-    dev_s = sum(sec for key, (_, sec) in profile(fn)[1].items()
-                if "flash_attention_tf32_kernel" in key)
     ops = 4 * 8 * 16 * 1024 * 1025 // 2
     byts = (2 * q.numel() + k.numel() + v.numel()) * 2
     out = {"shape": "q [1, 8, 1024, 16] strided, k/v [1, 1, 1024, 16], bf16",
-           "ms": per_call_ms(fn), "device_ms": dev_s * 1e3 / 10,
+           "ms": per_call_ms(fn), "device_ms": traced_ms(fn, "flash_attention_tf32_kernel"),
            "library_ms": per_call_ms(sdpa),
-           "library_device_ms": sum(
-               sec for _, sec in profile(sdpa)[1].values()) * 1e3 / 10}
+           "library_device_ms": traced_all_ms(sdpa)[0]}
     out["bound_ms"], out["bound_by"] = bound(byts, ops, BF16_FLOPS_PER_S)
     print(f"time flash_attention (TF32 kernel, bf16, head dim 16): "
           f"{ {k: (round(v, 5) if isinstance(v, float) else v) for k, v in out.items()} } "
@@ -900,6 +987,7 @@ def train_mnist(dev, smi: str, art_dir: Path) -> dict:
 
     comp.compile_backend("fused")
     path = comp.save(str(art_dir / "mnist_trained_fused.npz"))
+    out["artifact"] = path
     out["serve"] = serve_artifact(path, "fused", "lut_cascade_streamed", xs,
                                   dev, smi, "mnist/trained/fused")
     out["step"] = step_metrics(flow, cfg, data, dev, smi)
@@ -948,7 +1036,7 @@ def step_metrics(flow, cfg, data, dev, smi: str) -> dict:
             fail(f"train step {mode}: K4 launches {counts}, expected "
                  f"{want_dx} dense dx reductions a step and no reference "
                  "kernel")
-        wall, prof = profile(step, calls=1)
+        wall, prof, _ = profile(step, calls=1)
         busy = sum(sec for _, sec in prof.values())
         k4_dev = {k: sum(sec for key, (_, sec) in prof.items()
                          if K4_KERNELS[k] in key) for k in K4_ROUTES[1:]}
@@ -971,13 +1059,43 @@ def step_metrics(flow, cfg, data, dev, smi: str) -> dict:
     return out
 
 
+def hold_step(cpu, card, losses, lr: float, label: str) -> float:
+    """Fail unless the loss and the updated parameters of one training step
+    on the card (``card``) agree with the CPU's (``cpu``) at rtol 1e-4
+    (atol 1e-6); elements whose CPU gradient is below 1e-6 are rounding
+    noise that Adam moves by up to lr either way, and are held to 2 lr.
+    Returns the largest difference outside them."""
+    import torch
+    from repro_torch.core import assemble
+
+    worst = 0.0
+    for pc, pg in zip(assemble.leaves(cpu), assemble.leaves(card)):
+        grad = pc.grad if isinstance(pc, torch.nn.Parameter) else None
+        pg = pg.detach().cpu()
+        pc = pc.detach()
+        if not pc.dtype.is_floating_point:
+            if not torch.equal(pc, pg):
+                fail(f"{label}: an integer leaf changed")
+            continue
+        noise = (grad.abs() < 1e-6 if grad is not None
+                 else torch.zeros_like(pc, dtype=torch.bool))
+        diff = (pc - pg).abs()
+        worst = max(worst, float(diff[~noise].max()) if (~noise).any()
+                    else 0.0)
+        if not torch.allclose(pg[~noise], pc[~noise], rtol=1e-4,
+                              atol=1e-6) or \
+                bool((diff[noise] > 2 * lr + 1e-6).any()):
+            fail(f"{label}: parameters differ by up to {float(diff.max())}")
+    if abs(losses[0] - losses[1]) > 1e-4 * abs(losses[0]):
+        fail(f"{label}: loss {losses}")
+    return worst
+
+
 def step_card_vs_cpu(dev) -> dict:
     """One training step of ``mnist_reduced`` (dense and sparse) on the card
-    and on the CPU from the same initial parameters and batch: the loss
-    and the updated parameters must agree at rtol 1e-4 (atol 1e-6).
-    Elements whose CPU gradient is below 1e-6 are rounding noise (the last
-    bias before BN, which BN cancels); Adam moves them by up to lr either
-    way, so they are held to 2 lr instead."""
+    and on the CPU from the same initial parameters and batch, held by
+    :func:`hold_step` (the noise elements are the last bias before BN,
+    which BN cancels)."""
     import torch
     from repro_torch.configs import paper_tasks
     from repro_torch.core import assemble
@@ -1001,27 +1119,8 @@ def step_card_vs_cpu(dev) -> dict:
                 torch.from_numpy(data.y_train).to(d), dense=dense,
                 lasso=1e-4 if dense else 0.0)
             losses.append(float(loss))
-        worst = 0.0
-        for pc, pg in zip(assemble.leaves(cpu), assemble.leaves(card)):
-            grad = pc.grad if isinstance(pc, torch.nn.Parameter) else None
-            pg = pg.detach().cpu()
-            pc = pc.detach()
-            if not pc.dtype.is_floating_point:
-                if not torch.equal(pc, pg):
-                    fail("card vs CPU step: an integer leaf changed")
-                continue
-            noise = (grad.abs() < 1e-6 if grad is not None
-                     else torch.zeros_like(pc, dtype=torch.bool))
-            diff = (pc - pg).abs()
-            worst = max(worst, float(diff[~noise].max()) if (~noise).any()
-                        else 0.0)
-            if not torch.allclose(pg[~noise], pc[~noise], rtol=1e-4,
-                                  atol=1e-6) or \
-                    bool((diff[noise] > 2 * lr + 1e-6).any()):
-                fail(f"card vs CPU step (dense={dense}): parameters differ "
-                     f"by up to {float(diff.max())}")
-        if abs(losses[0] - losses[1]) > 1e-4 * abs(losses[0]):
-            fail(f"card vs CPU step (dense={dense}): loss {losses}")
+        worst = hold_step(cpu, card, losses, lr,
+                          f"card vs CPU step (dense={dense})")
         out["dense" if dense else "sparse"] = {"loss_cpu": losses[0],
                                                "loss_card": losses[1],
                                                "max_param_diff": worst}
@@ -1055,6 +1154,373 @@ def train_nid(dev, smi: str) -> dict:
     if acc != facc:
         fail(f"nid_reduced folded accuracy {facc} != {acc}")
     return {"accuracy": acc, "folded_accuracy": facc, "seconds": secs}
+
+
+STREAM_STEPS = (20, 30)      # pretrain, retrain steps of the stream cell
+STREAM_STREAMS = 1024        # concurrent streams served
+STREAM_BLOCK = 256           # rows a block of the cell-mode engine
+
+
+def stream_cell_step_card_vs_cpu(dev, cc, data) -> dict:
+    """One truncated-BPTT step of ``seqmnist_reduced`` (64 sequences of 49
+    steps, windows of 8), dense and sparse, on the card and on the CPU from
+    the same parameters, held by :func:`hold_step`."""
+    import torch
+    from repro_torch.core import assemble
+    from repro_torch.train import lut_trainer, optim
+
+    lr = 5e-3
+    ocfg = optim.AdamWConfig(lr=lr, weight_decay=1e-4)
+    xb = torch.from_numpy(data.x_train[:64])
+    yb = torch.from_numpy(data.y_train[:64])
+    out = {}
+    for dense in (True, False):
+        cpu = assemble.init(5, cc.net, dense=dense, device="cpu")
+        card = assemble.params_from_reference(
+            assemble.params_to_reference(cpu), device=dev)
+        losses = []
+        for net, d in ((cpu, "cpu"), (card, dev)):
+            opt = optim.adamw_init(assemble.leaves(net))
+            _, loss = lut_trainer.train_stream_step(
+                net, cc, ocfg, opt, xb.to(d), yb.to(d), window=8,
+                dense=dense, lasso=1e-4 if dense else 0.0)
+            losses.append(float(loss))
+        worst = hold_step(cpu, card, losses, lr,
+                          f"stream step card vs CPU (dense={dense})")
+        out["dense" if dense else "sparse"] = {
+            "loss_cpu": losses[0], "loss_card": losses[1],
+            "max_param_diff": worst}
+    print(f"one stream step card vs CPU (seqmnist_reduced): {out}",
+          flush=True)
+    return out
+
+
+def serve_streams(card, cpu_codes, xs, backend: str, dev, smi: str) -> dict:
+    """Serve ``xs [N, T, n_in]`` as N concurrent streams through a
+    ``StreamRouter`` (block 256, depth 2) on ``backend`` with the launch
+    counts set to 0 just before; fail unless every stream's codes and final
+    state equal the offline ``take`` scan on the card and the CPU
+    (``cpu_codes``) and the backend's kernel launched once a block (K1) or
+    once a layer a block (K3).  Returns the serving numbers and the
+    idle share of 10 profiled block ticks."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.stream.session import StreamRouter
+
+    want, want_s = cpu_codes
+    n, t = xs.shape[:2]
+    warm = StreamRouter(card, block=STREAM_BLOCK, depth=2, backend=backend)
+    warm.run_sequences({i: xs[i, :2] for i in range(STREAM_BLOCK)})
+    router = StreamRouter(card, block=STREAM_BLOCK, depth=2, backend=backend)
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    for sid in range(n):
+        router.open(sid)
+        router.feed(sid, xs[sid])
+    router.pump()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    blocks = router.engine.stats.ticks
+    layers = len(card.cell.net.layers)
+    kname, per_block, other = (("lut_cascade_resident", 1, "lut_lookup")
+                               if backend == "fused" else
+                               ("lut_lookup", layers, "lut_cascade_resident"))
+    if counts.get(kname, 0) != per_block * blocks or counts.get(other, 0) \
+            or counts.get("lut_cascade_streamed", 0):
+        fail(f"stream/{backend}: launches {counts}, expected {kname} "
+             f"{per_block} x {blocks} blocks and no other LUT kernel")
+    for sid in range(n):
+        s = router.sessions[sid]
+        if not (np.array_equal(s.codes(), want[sid])
+                and np.array_equal(router.store.get(sid), want_s[sid])):
+            fail(f"stream/{backend}: stream {sid} differs from the offline "
+                 "take scan")
+    steps = n * t
+    out = {"streams": n, "steps_per_stream": t, "steps": steps,
+           "block": STREAM_BLOCK, "depth": 2, "blocks": blocks,
+           "rows_padded": router.engine.stats.rows_padded,
+           "state_bytes": router.store.nbytes, "launches": counts,
+           "wall_s": wall, "steps_per_s": steps / wall,
+           "p50_step_us": router.latency_us(50),
+           "p99_step_us": router.latency_us(99),}
+    # one steady block tick at a time under the profiler (the router holds
+    # a block in flight, so a tick dispatches one block and retires one)
+    prof_router = StreamRouter(card, block=STREAM_BLOCK, depth=2,
+                               backend=backend)
+    for sid in range(n):
+        prof_router.open(sid)
+        prof_router.feed(sid, xs[sid])
+    for _ in range(4):
+        prof_router.tick()
+    pwall, prof, _ = profile(prof_router.tick, calls=10)
+    busy = sum(sec for _, sec in prof.values())
+    out.update(profiled_ticks=10, profiled_wall_s=pwall,
+               device_busy_s=busy, device_idle_share=1.0 - busy / pwall,
+               device_kernels={key[:60]: (c, sec * 1e3)
+                               for key, (c, sec) in prof.items()})
+    print(f"stream/{backend}: {n} streams x {t} steps, every stream == "
+          f"offline take on the card and the CPU, {steps / wall:,.0f} "
+          f"steps/s, step latency p50 {out['p50_step_us']:.0f} us p99 "
+          f"{out['p99_step_us']:.0f} us, {blocks} blocks ({out['rows_padded']}"
+          f" rows padded), state {out['state_bytes']} B, launches {counts}; "
+          f"10 profiled ticks: wall {pwall * 1e3:.2f} ms, device busy "
+          f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / pwall:.3f} [{smi}]",
+          flush=True)
+    return out
+
+
+def state_sensitivity(cpu, xs, want) -> dict:
+    """Shows that the served-vs-offline check of ``serve_streams`` can catch
+    a state served to the wrong stream: on the CPU cell's ``take`` scan of
+    ``xs [N, T, n_in]``, the distinct states across streams at each step,
+    and the streams whose codes change in two faulty scans, one that hands
+    every stream the previous stream's state at each step (a cross-stream
+    leak) and one that resets the state to the initial code each step.
+    Fails unless the final states differ across streams, the leak changes
+    the codes of at least a tenth of the streams and the reset those of
+    some stream."""
+    import torch
+    n, t = xs.shape[:2]
+    x = torch.as_tensor(xs, dtype=torch.float32)
+    s0 = cpu.init_state_codes(n)
+    s = leak_s = s0
+    distinct, leak, reset = [], [], []
+    for i in range(t):
+        _, _, s = cpu.step(x[:, i], s, backend="take")
+        distinct.append(len(torch.unique(s, dim=0)))
+        c, _, leak_s = cpu.step(x[:, i], torch.roll(leak_s, 1, 0),
+                                backend="take")
+        leak.append(c)
+        reset.append(cpu.step(x[:, i], s0, backend="take")[0])
+    changed = {name: int((torch.stack(c, 1) != want).flatten(1).any(1).sum())
+               for name, c in (("leak", leak), ("reset", reset))}
+    out = {"distinct_states_by_step": distinct,
+           "final_distinct_states": distinct[-1],
+           "streams_changed": changed}
+    if distinct[-1] < 2 or 10 * changed["leak"] < n or not changed["reset"]:
+        fail(f"stream: the states carry too little to show a cross-stream "
+             f"leak: {out}")
+    return out
+
+
+def stream_kernels(card, rs, dev, smi: str) -> list:
+    """K1 on one block of the cell (256 rows) and K3 per launch (the mean
+    of the cell's 4 layers at 256 rows), each held against its plain
+    version at the block and at ragged batches; returns their rows for the
+    kernel table (launches filled in by the caller)."""
+    import torch
+    from repro_torch.kernels import lut_cascade, lut_gather
+
+    b = STREAM_BLOCK
+    plan = card.net.compile_backend("fused").plan
+    layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
+    tables = plan.tensor("tables", dev)
+    maps = [plan.tensor(f"map_{l}", dev) if f"map_{l}" in plan.buffers
+            else None for l in range(len(layers))]
+    ops = lut_cascade.prepare(tables, layers, maps)
+    span = 2 ** layers[0][5]
+    err1 = 0
+    for rows in (1, 3, 255, b, 257, 1024):
+        codes = torch.from_numpy(rs.randint(0, span, size=(
+            rows, layers[0][0])).astype("int32")).to(dev)
+        got = lut_cascade.lut_cascade_resident(codes, ops)
+        torch.cuda.synchronize()
+        want = lut_cascade.lut_cascade_plain(codes, tables, maps, layers)
+        err1 = max(err1, int((got - want).abs().max()))
+    lplan = card.net.compile_backend("pallas").plan
+    shapes = []
+    err3 = 0
+    for l in range(len(lplan.meta["layers"])):
+        table = lplan.tensor(f"table_{l}", dev)
+        for rows in (1, 257, b):
+            addr = torch.from_numpy(rs.randint(0, table.shape[1], size=(
+                rows, table.shape[0])).astype("int32")).to(dev)
+            got = lut_gather.lut_lookup_cuda(table, addr)
+            torch.cuda.synchronize()
+            err3 = max(err3, int((got - lut_gather.lut_lookup_plain(
+                table, addr)).abs().max()))
+        shapes.append((table, addr))
+    if err1 or err3:
+        fail(f"stream cell kernels disagree with their plain versions: K1 "
+             f"{err1}, K3 {err3}")
+    codes = torch.from_numpy(rs.randint(0, span, size=(
+        b, layers[0][0])).astype("int32")).to(dev)
+    byts, n_ops = cascade_work(layers, b, tables.numel()
+                               * tables.element_size(), ops.map_words * 4)
+    rows = []
+    # K3's yardstick is one torch.gather a layer, as in phase 5; no single
+    # PyTorch call computes K1's cascade
+    for name, kern, plain, lib, nbytes, per, sub in (
+            ("lut_cascade_resident",
+             lambda: lut_cascade.lut_cascade_resident(codes, ops),
+             lambda: lut_cascade.lut_cascade_plain(codes, tables, maps,
+                                                   layers),
+             None, byts, 1, "cascade_resident_kernel"),
+            ("lut_lookup",
+             lambda: [lut_gather.lut_lookup_cuda(t, a) for t, a in shapes],
+             lambda: [lut_gather.lut_lookup_plain(t, a) for t, a in shapes],
+             lambda: [torch.gather(t, 1, a.t().long()).t()
+                      for t, a in shapes],
+             sum(a.numel() * 8 + t.numel() * 4 for t, a in shapes),
+             len(shapes), "lut_lookup_kernel")):
+        ms = per_call_ms(kern) / per
+        plain_ms = per_call_ms(plain) / per
+        device_ms = traced_ms(kern, sub, 10, per)
+        device_ms = None if device_ms is None else device_ms / per
+        lib_ms = lib_dev_ms = None
+        if lib is not None:
+            lib_ms = per_call_ms(lib) / per
+            lib_dev_ms = traced_all_ms(lib)[0]
+            lib_dev_ms = None if lib_dev_ms is None else lib_dev_ms / per
+        bound_ms, bound_by = bound(nbytes // per, n_ops if per == 1 else 0)
+        rows.append({"name": name, "path": "seqmnist/stream",
+                     "task": "seqmnist_reduced cell", "batch": b,
+                     "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "max_abs_err": err1 if per == 1 else err3})
+        print(f"time {name} (seqmnist_reduced cell, batch {b}, per launch): "
+              f"kernel {ms:.4f} ms (device {device_ms} ms), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms} ms (device {lib_dev_ms}"
+              f" ms), bound {bound_ms:.6f} ms ({bound_by})"
+              + (f", plan {k1_plan(ops, b)}" if per == 1 else "")
+              + f" [{smi}]", flush=True)
+    rows[0]["plan"] = k1_plan(ops, b)
+    return rows
+
+
+def stream_phase(dev, smi: str, seed: int, art_dir: Path) -> dict:
+    """Slice 8's main path: ``seqmnist_reduced`` at its own widths trained
+    on the card through ``Toolflow(cell, tbptt=8)`` (K4 in pretrain and
+    retrain, launch counts set to 0 just before), folded, saved, reloaded,
+    and 1,024 concurrent streams x 49 steps served on ``fused`` (K1) and
+    ``pallas`` (K3); the folded cell equals the training graph's codes,
+    and the served codes the offline ``take`` scan on the card and the
+    CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.configs import paper_tasks
+    from repro_torch.kernels import build
+    from repro_torch.stream import cell as stream_cell
+
+    cc = paper_tasks.stream_task_config("seqmnist_reduced")
+    data = paper_tasks.stream_task_data("seqmnist_reduced", n_train=2048,
+                                        n_test=STREAM_STREAMS)
+    out = {"task": "seqmnist_reduced", "steps": STREAM_STEPS, "tbptt": 8}
+    flow = pipeline.Toolflow(cc, pretrain_steps=STREAM_STEPS[0],
+                             retrain_steps=STREAM_STEPS[1], batch_size=64,
+                             tbptt=8, device=dev)
+    launches = {}
+    for name, fn in (("pretrain", lambda: flow.pretrain(data)),
+                     ("prune", flow.prune), ("retrain", flow.retrain),
+                     ("compile", lambda: flow.compile(backend="fused"))):
+        torch.cuda.synchronize()
+        build.reset_counters()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t
+        launches[name] = build.launch_counts()
+        if name in ("pretrain", "retrain") and (
+                launches[name].get("unit_affine", 0) < 1
+                or launches[name].get("unit_affine_reference", 0)):
+            fail(f"stream toolflow: K4 launches in {name}: {launches[name]}")
+    out["launches"] = launches
+    for st in ("pretrain", "retrain"):
+        loss = flow.stages[st].metrics["final_loss"]
+        out[f"{st}_final_loss"] = loss
+        if not np.isfinite(loss):
+            fail(f"stream toolflow: {st} loss is {loss}")
+    comp = flow.compiled
+    xs = data.x_test[:STREAM_STREAMS]
+    folded = comp.predict_sequence(xs, backend="take")[0]
+    graph = stream_cell.apply_sequence_codes(flow.params, cc, xs)
+    if not torch.equal(folded, graph):
+        fail("stream toolflow: the folded cell differs from the training "
+             "graph's codes")
+    out["accuracy"] = flow.accuracy(max_eval=STREAM_STREAMS)
+    out["folded_accuracy"] = flow.accuracy(folded=True,
+                                           max_eval=STREAM_STREAMS)
+    print(f"stream toolflow (seqmnist_reduced, tbptt 8): pretrain "
+          f"{out['pretrain_s']:.2f} s ({STREAM_STEPS[0]} steps), retrain "
+          f"{out['retrain_s']:.2f} s ({STREAM_STEPS[1]} steps), fold "
+          f"{out['compile_s']:.3f} s, losses {out['pretrain_final_loss']:.4f}"
+          f" / {out['retrain_final_loss']:.4f}, K4 launches by stage "
+          f"{ {k: v.get('unit_affine', 0) for k, v in launches.items()} }; "
+          f"folded == training graph over {STREAM_STREAMS} x 49 steps; "
+          f"accuracy {out['accuracy']:.4f}, folded "
+          f"{out['folded_accuracy']:.4f} [{smi}]", flush=True)
+
+    path = comp.save(str(art_dir / "seqmnist_cell.npz"))
+    card = stream_cell.CompiledStreamCell.load(path, device=dev)
+    cpu = stream_cell.CompiledStreamCell.load(path, device="cpu")
+    want, _, want_s = cpu.predict_sequence(xs, backend="take")
+    take, _, take_s = card.predict_sequence(xs, backend="take")
+    if not (torch.equal(take.cpu(), want) and torch.equal(take_s.cpu(),
+                                                          want_s)):
+        fail("stream: the card's offline take scan differs from the CPU's")
+    out["state_sensitivity"] = state_sensitivity(cpu, xs, want)
+    print(f"stream state: {out['state_sensitivity']['final_distinct_states']}"
+          f" distinct final states over {STREAM_STREAMS} streams (at most "
+          f"{max(out['state_sensitivity']['distinct_states_by_step'])} a "
+          f"step); streams whose codes a faulty scan changes: "
+          f"{out['state_sensitivity']['streams_changed']}", flush=True)
+    ref = (want.numpy(), want_s.numpy())
+    out["serve"] = {be: serve_streams(card, ref, xs, be, dev, smi)
+                    for be in ("fused", "pallas")}
+    out["step_card_vs_cpu"] = stream_cell_step_card_vs_cpu(dev, cc, data)
+    out["kernels"] = stream_kernels(card, np.random.RandomState(seed + 8),
+                                    dev, smi)
+    return out
+
+
+def hw_surfaces(path: str, dev, smi: str) -> dict:
+    """``hw_report``, ``to_verilog`` (its length and sha256), ``count_luts``,
+    ``calibration_vs_rtl`` and ``dontcare.analyze`` (on 4,096 training
+    rows) of the card-folded ``mnist`` artifact; fails unless its Verilog
+    equals byte for byte the Verilog of the same artifact loaded on the
+    CPU and the don't-care reports agree."""
+    import dataclasses
+    import hashlib
+    from repro_torch import pipeline
+    from repro_torch.core import dontcare, hwcost, rtl
+    from repro_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    card = pipeline.CompiledLUTNetwork.load(path, device=dev)
+    cpu = pipeline.CompiledLUTNetwork.load(path, device="cpu")
+    rep = card.hw_report()
+    verilog = card.to_verilog()
+    if verilog != cpu.to_verilog():
+        fail("hw surfaces: the card artifact's Verilog differs from the "
+             "CPU load's")
+    counted = rtl.count_luts(verilog)
+    cal = hwcost.calibration_vs_rtl(card.folded())
+    if counted != cal["rtl_luts"] or abs(cal["ratio"] - 1.0) > 0.02:
+        fail(f"hw surfaces: count_luts {counted}, calibration {cal}")
+    x = synthetic.load("mnist").x_train[:4096]
+    dc = dontcare.analyze(card.folded(), x)
+    if dataclasses.asdict(dc) != dataclasses.asdict(
+            dontcare.analyze(cpu.folded(), x)):
+        fail("hw surfaces: the don't-care analysis differs between the "
+             "card and the CPU")
+    out = {"hw_report": dataclasses.asdict(rep),
+           "verilog_bytes": len(verilog.encode()),
+           "verilog_sha256": hashlib.sha256(verilog.encode()).hexdigest(),
+           "count_luts": counted, "calibration": cal,
+           "dontcare": dict(dataclasses.asdict(dc),
+                            lut_reduction=dc.lut_reduction),
+           "seconds": time.perf_counter() - t0}
+    print(f"hw surfaces (mnist, folded on the card): {rep}; Verilog "
+          f"{out['verilog_bytes']} B sha256 {out['verilog_sha256'][:16]}.. "
+          f"== CPU load's; count_luts {counted}, calibration ratio "
+          f"{cal['ratio']}; don't-care {dc.structural_luts} -> "
+          f"{dc.optimized_luts} LUTs ({dc.lut_reduction:.3f}x) "
+          f"({out['seconds']:.1f} s)", flush=True)
+    return out
 
 
 def main(seed: int) -> dict:
@@ -1276,11 +1742,12 @@ def main(seed: int) -> dict:
         "ops": 2 * kb * ku * kdin * kdout, "ops_per_s": F32_FLOPS_PER_S})
     # The dense gradient on the same layer: dy [256, 2160, 64] -> dx
     # [256, 784]; yardstick one einsum "bun,ukn->bk" (also the plain
-    # version).  The f32 scratch of partials is not in the bound.
+    # version).  The f32 scratch of partials is not in the bound.  A call
+    # launches two kernels (partials, then their sum), both in its time.
     dy4 = torch.randn((kb, ku, kdout), generator=gen4).to(dev)
     kernels.append({
         "name": "unit_affine_dx", "task": "mnist dense layer 0, dx",
-        "batch": kb, "calls": 10,
+        "batch": kb, "calls": 10, "traced_per_call": 2,
         "kernel": lambda: subnet_mlp.unit_affine_dx_cuda(dy4, w4),
         "plain": lambda: subnet_mlp.unit_affine_dx_plain(dy4, w4),
         "library": lambda: torch.einsum("bun,ukn->bk", dy4, w4),
@@ -1351,24 +1818,20 @@ def main(seed: int) -> dict:
         k["plain_ms"] = per_call_ms(k["plain"], calls=calls)
         k["library_ms"] = (None if k["library"] is None
                            else per_call_ms(k["library"], calls=calls))
-        _, prof = profile(k["kernel"])
-        hits = [v for key, v in prof.items() if substr[k["name"]] in key]
-        k["device_ms"] = (sum(s for _, s in hits) * 1e3 / 10 if hits
-                          else None)
+        k["device_ms"] = traced_ms(
+            k["kernel"], substr[k["name"]], 10,
+            k.pop("traced_per_call", k.get("per_launch", 1)))
         # the library call's own device time: every kernel it launches
-        lib_prof = {} if k["library"] is None else profile(k["library"])[1]
-        k["library_device_ms"] = None if k["library"] is None else sum(
-            s for _, s in lib_prof.values()) * 1e3 / 10
-        k["library_kernels"] = sorted(key[:120] for key in lib_prof)
+        k["library_device_ms"], k["library_kernels"] = (
+            (None, []) if k["library"] is None
+            else traced_all_ms(k["library"]))
         k["bound_ms"], k["bound_by"] = bound(
             k["bytes"], k["ops"], k.pop("ops_per_s", INT_OPS_PER_S))
         ref = k.pop("reference", None)
         if ref is not None:
             # K4's first kernel on the same inputs (report only)
             k["reference_ms"] = per_call_ms(ref, calls=calls)
-            k["reference_device_ms"] = sum(
-                sec for key, (_, sec) in profile(ref)[1].items()
-                if substr["reference"] in key) * 1e3 / 10
+            k["reference_device_ms"] = traced_ms(ref, substr["reference"])
         for fn in ("kernel", "plain", "library"):
             del k[fn]
         n_per = k.pop("per_launch", 1)
@@ -1385,13 +1848,11 @@ def main(seed: int) -> dict:
     k3 = next(k for k in kernels if k["name"] == "lut_lookup")
     k3["per_layer"] = []
     for t, a in shapes:
-        hits = [v for key, v in profile(
-            lambda t=t, a=a: lut_gather.lut_lookup_cuda(t, a))[1].items()
-            if substr["lut_lookup"] in key]
         k3["per_layer"].append({
             "units": t.shape[0], "entries": t.shape[1],
-            "device_ms": sum(sec for _, sec in hits) * 1e3 / 10 if hits
-            else None,
+            "device_ms": traced_ms(
+                lambda t=t, a=a: lut_gather.lut_lookup_cuda(t, a),
+                substr["lut_lookup"]),
             "bound_ms": bound(a.numel() * 8 + t.numel() * 4, 0)[0]})
     side = [k for k in kernels if k.pop("side", False)]
     kernels = [k for k in kernels if all(k is not x for x in side)]
@@ -1414,7 +1875,7 @@ def main(seed: int) -> dict:
         xs = rs.uniform(-1.0, 1.0, (8192, net.cfg.in_features)
                         ).astype(np.float32)
         eng = LUTEngine(net, block=1024, depth=2, backend=backend)
-        wall, prof = profile(lambda: eng.run(xs), calls=1)
+        wall, prof, _ = profile(lambda: eng.run(xs), calls=1)
         busy = sum(s for _, s in prof.values())
         serving[key]["profiled_wall_s"] = wall
         serving[key]["device_busy_s"] = busy
@@ -1422,6 +1883,12 @@ def main(seed: int) -> dict:
         print(f"profile {key}: wall {wall * 1e3:.2f} ms, device busy "
               f"{busy * 1e3:.3f} ms, idle share {1.0 - busy / wall:.3f} "
               f"[{smi}]", flush=True)
+    # -- phase 8: stream serving and hardware surfaces (slice 8) -------------
+    # (after phase 5, whose kernel times are compared across slices)
+    report["stream"] = stream_phase(dev, smi, seed, art_dir)
+    report["hw_surfaces"] = hw_surfaces(
+        report["toolflow_mnist"]["artifact"], dev, smi)
+
     for k in kernels:
         if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
@@ -1436,10 +1903,8 @@ def main(seed: int) -> dict:
                 m: v["k4_launches"][k["name"]]
                 for m, v in report["toolflow_mnist"]["step"].items()}
         else:
-            k["launches"] = serving[{"lut_cascade_streamed": "mnist/fused",
-                                     "lut_cascade_resident": "nid/fused",
-                                     "lut_lookup": "nid/pallas"}[k["name"]]
-                                    ]["launches"][k["name"]]
+            k["launches"] = serving[PATHS[k["name"]]]["launches"][k["name"]]
+        k["path"] = PATHS[k["name"]]
         k["max_abs_err"] = errs[k["name"]]
         k["route"] = "cuda"
         k["source"] = SOURCES[k["name"]]
@@ -1463,7 +1928,21 @@ def main(seed: int) -> dict:
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}){ref} {extra} "
               f"[{smi}]",
               flush=True)
+    # the stream path's kernels at the cell's block: launches of its run
+    for k in report["stream"]["kernels"]:
+        backend = "fused" if k["name"] == "lut_cascade_resident" else "pallas"
+        kernels.append(dict(
+            k, route="cuda", source=SOURCES[k["name"]],
+            replaces=REPLACES[k["name"]],
+            launches=report["stream"]["serve"][backend]["launches"][
+                k["name"]]))
     report["kernels"] = kernels
+    report["profiler_lead_lost"] = {str(n): LEAD_LOST.count(n)
+                                    for n in sorted(set(LEAD_LOST))}
+    report["profiler_retraced"] = RETRACED
+    print(f"profiler sessions by spin launches lost: "
+          f"{report['profiler_lead_lost']}; incomplete traces: "
+          f"{len(RETRACED)} {RETRACED}", flush=True)
     return report
 
 
@@ -1476,7 +1955,8 @@ if __name__ == "__main__":
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "report.json").write_text(json.dumps(rep, indent=1))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "path", "route", "source", "replaces", "launches",
+            "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}

@@ -1,7 +1,8 @@
 """The paper's Table II model configurations and their reduced variants.
 
-A copy of ``repro.configs.paper_tasks`` (feed-forward tasks only; the
-stream tasks need the recurrent cell, which is not ported yet).
+A copy of ``repro.configs.paper_tasks``: the feed-forward tasks and the
+sequential (stream) tasks, whose configs are recurrent cells
+(:class:`~repro_torch.stream.cell.StreamCellConfig`).
 """
 from __future__ import annotations
 
@@ -106,3 +107,74 @@ def task_config(name: str) -> AssembleConfig:
     if name not in TASKS:
         raise ValueError(f"unknown task {name!r}; known: {sorted(TASKS)}")
     return TASKS[name][1]()
+
+
+# ---------------------------------------------------------------------------
+# Sequential tasks: streamed inputs through repro_torch.stream cells.
+# ---------------------------------------------------------------------------
+
+def seqmnist_reduced():
+    """SeqMNIST-style pixel stream: 784 binarized pixels fed 16 per step
+    (T = 49); an assembled-LUT cell carries 8 one-bit state codes and
+    emits the 10 class logits at every step (read at the last)."""
+    from repro_torch.stream.cell import StreamCellConfig
+    net = AssembleConfig(
+        in_features=24, input_bits=1, input_signed=False,
+        layers=(LayerSpec(72, 6, 1, False), LayerSpec(12, 6, 1, True),
+                LayerSpec(54, 3, 1, False), LayerSpec(18, 3, 4, True)),
+        subnet_width=16, subnet_depth=2, skip_step=2)
+    return StreamCellConfig(net=net, n_in=16, n_state=8)
+
+
+def rwkv_mix_reduced():
+    """LUT time-mix head replacement: the cell consumes per-step features
+    from a fixed RWKV trunk and acts as the recurrent head (10 logits + 8
+    state codes).  Its data needs the RWKV trunk, which the port does not
+    have yet (:func:`stream_task_data` raises)."""
+    from repro_torch.stream.cell import StreamCellConfig
+    net = AssembleConfig(
+        in_features=24, input_bits=2, input_signed=True,
+        layers=(LayerSpec(72, 4, 2, False), LayerSpec(12, 6, 2, True),
+                LayerSpec(54, 3, 2, False), LayerSpec(18, 3, 4, True)),
+        subnet_width=16, subnet_depth=2, skip_step=2)
+    return StreamCellConfig(net=net, n_in=16, n_state=8)
+
+
+# name -> (dataset name, chunk width, cell-config factory)
+STREAM_TASKS = {
+    "seqmnist_reduced": ("mnist", 16, seqmnist_reduced),
+    "rwkv_mix_reduced": ("mnist", 16, rwkv_mix_reduced),
+}
+
+
+def stream_task_names():
+    """Names of every registered sequential task."""
+    return tuple(STREAM_TASKS)
+
+
+def stream_task_config(name: str):
+    """:class:`~repro_torch.stream.cell.StreamCellConfig` of a sequential
+    task."""
+    if name not in STREAM_TASKS:
+        raise ValueError(
+            f"unknown stream task {name!r}; known: {sorted(STREAM_TASKS)}")
+    return STREAM_TASKS[name][2]()
+
+
+def stream_task_data(name: str, *, n_train: int = 2048, n_test: int = 512,
+                     seed: int = 0):
+    """Load and stream-convert the dataset of a sequential task: a
+    :class:`~repro_torch.data.synthetic.SeqDataset` of ``[N, T, n_in]``
+    chunk streams."""
+    from repro_torch.data import synthetic
+    if name not in STREAM_TASKS:
+        raise ValueError(
+            f"unknown stream task {name!r}; known: {sorted(STREAM_TASKS)}")
+    if name == "rwkv_mix_reduced":
+        raise NotImplementedError(
+            "rwkv_mix_reduced streams features of an RWKV trunk "
+            "(models.rwkv.feature_stream), which the port does not have yet "
+            "(ROADMAP A.14c)")
+    ds_name, chunk, _ = STREAM_TASKS[name]
+    data = synthetic.load(ds_name, n_train=n_train, n_test=n_test, seed=seed)
+    return synthetic.to_sequences(data, chunk)

@@ -336,10 +336,12 @@ def gather_layer_inputs(cfg: AssembleConfig, layer: Layer, l: int,
 
 
 def apply(net: LUTNet, cfg: AssembleConfig, x: torch.Tensor, *,
-          training: bool = False, dense: bool = False) -> torch.Tensor:
+          training: bool = False, dense: bool = False,
+          bn_batch_stats: bool = True) -> torch.Tensor:
     """Forward pass: x ``[batch, in_features]`` -> logits ``[batch,
     n_out]``.  When ``training`` the BN running statistics are refreshed
-    in ``net``."""
+    in ``net``; ``bn_batch_stats=False`` trains with frozen-stats BN (the
+    recurrent-cell mode, ``repro_torch.stream``)."""
     h = quant.fake_quant(net.in_q, cfg.input_quant_spec(), x)
     for l, spec in enumerate(cfg.layers):
         layer = net.layers[l]
@@ -351,7 +353,7 @@ def apply(net: LUTNet, cfg: AssembleConfig, x: torch.Tensor, *,
         out = subnet.apply_subnet(
             layer.subnet, cfg.subnet_spec(l, dense=dense), xi,
             activation=False if additive else cfg.has_activation(l),
-            training=training)[..., 0]
+            training=training, bn_batch_stats=bn_batch_stats)[..., 0]
         if additive:
             # PolyLUT-Add boundary: quantize each branch, sum pre-activation
             out = quant.fake_quant(layer.add_q, cfg.add_quant_spec(l), out)

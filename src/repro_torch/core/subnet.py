@@ -119,7 +119,8 @@ def expand_poly(spec: SubnetSpec, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_subnet(sn: Subnet, spec: SubnetSpec, x: torch.Tensor, *,
-                 activation: bool, training: bool = False) -> torch.Tensor:
+                 activation: bool, training: bool = False,
+                 bn_batch_stats: bool = True) -> torch.Tensor:
     """Run the batched subnets: x ``[batch, units, F]`` (dequantized inputs)
     or rows that every unit reads, ``[batch, F]`` (dense mode, the fold's
     enumeration) -> ``[batch, units, out_dim]`` pre-quantization outputs.
@@ -127,7 +128,9 @@ def apply_subnet(sn: Subnet, spec: SubnetSpec, x: torch.Tensor, *,
     that reads the subnet input, so no ``[batch, units, F]`` tensor or
     gradient is built.
 
-    When ``training`` the BN running statistics in ``sn.bn`` are refreshed.
+    When ``training`` the BN running statistics in ``sn.bn`` are refreshed;
+    ``bn_batch_stats=False`` then normalizes with the running statistics
+    (frozen-stats BN, see ``quant.batchnorm_apply``).
     ``activation`` applies ReLU to the output; hidden stages always do.  A
     hidden stage with no incoming bypass has its ReLU fused into K4.
     """
@@ -153,11 +156,13 @@ def apply_subnet(sn: Subnet, spec: SubnetSpec, x: torch.Tensor, *,
             h = z
     # batch-norm per unit (statistics per unit, not per out_dim element)
     if spec.out_dim == 1:
-        out = quant.batchnorm_apply(sn.bn, h[..., 0],
-                                    training=training)[..., None]
+        out = quant.batchnorm_apply(
+            sn.bn, h[..., 0], training=training,
+            use_batch_stats=bn_batch_stats)[..., None]
     else:
         mean_in = h.mean(dim=-1)
-        y = quant.batchnorm_apply(sn.bn, mean_in, training=training)
+        y = quant.batchnorm_apply(sn.bn, mean_in, training=training,
+                                  use_batch_stats=bn_batch_stats)
         out = h + (y - mean_in)[..., None]
     return torch.relu(out) if activation else out
 

@@ -143,6 +143,47 @@ def nid_like(n_train: int = 30_000, n_test: int = 6_000,
     return Dataset("nid-like", x_tr, y_tr, x_te, y_te, 2)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqDataset:
+    """A :class:`Dataset` whose rows are consumed as *streams*: each example
+    is a ``[T, n_in]`` sequence of per-step feature chunks, labelled once
+    (classification of the whole stream)."""
+
+    name: str
+    x_train: Array   # [N, T, n_in]
+    y_train: Array
+    x_test: Array
+    y_test: Array
+    n_classes: int
+
+    @property
+    def n_in(self) -> int:
+        """Features per step."""
+        return self.x_train.shape[-1]
+
+    @property
+    def seq_len(self) -> int:
+        """Steps per sequence."""
+        return self.x_train.shape[1]
+
+
+def to_sequences(data: Dataset, chunk: int) -> SeqDataset:
+    """SeqMNIST-style stream conversion: split each flat ``[D]`` row into
+    ``T = D // chunk`` steps of ``chunk`` features, presented in order."""
+    d = data.x_train.shape[-1]
+    if d % chunk:
+        raise ValueError(f"in_features {d} not divisible by chunk {chunk}")
+    t = d // chunk
+
+    def seq(x):
+        return np.ascontiguousarray(x.reshape(x.shape[0], t, chunk))
+
+    return SeqDataset(name=f"{data.name}-seq{chunk}",
+                      x_train=seq(data.x_train), y_train=data.y_train,
+                      x_test=seq(data.x_test), y_test=data.y_test,
+                      n_classes=data.n_classes)
+
+
 def load(name: str, **kw) -> Dataset:
     """The dataset registered as ``name`` (mnist, jsc_openml, jsc_cernbox,
     nid)."""
@@ -167,3 +208,17 @@ def batches(x: Array, y: Array, batch_size: int, *, seed: int = 0,
         for i in range(0, n - batch_size + 1, batch_size):
             idx = perm[i:i + batch_size]
             yield x[idx], y[idx]
+
+
+def augment_shift(x: Array, rs: np.random.Generator,
+                  max_shift: int = 2) -> Array:
+    """MNIST-style augmentation (the paper's ``+aug`` variant): random
+    +-2px translations."""
+    n = x.shape[0]
+    img = x.reshape(n, 28, 28)
+    out = np.zeros_like(img)
+    sx = rs.integers(-max_shift, max_shift + 1, n)
+    sy = rs.integers(-max_shift, max_shift + 1, n)
+    for i in range(n):
+        out[i] = np.roll(np.roll(img[i], sx[i], axis=0), sy[i], axis=1)
+    return out.reshape(n, -1)

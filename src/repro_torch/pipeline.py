@@ -7,10 +7,15 @@ to learned mappings, sparse re-training and exhaustive folding into a
 
     compiled = Toolflow(cfg).run(data)
 
+``Toolflow`` also takes a stream cell
+(:class:`~repro_torch.stream.cell.StreamCellConfig`): it then trains with
+truncated BPTT (``tbptt``), and ``compile`` returns a
+:class:`~repro_torch.stream.cell.CompiledStreamCell`.
+
 ``save_state``/``load_state`` write and read the reference's state file
 (``dense_<i>``/``sparse_<i>`` leaves in the reference's leaf order,
-``mapping_<l>``, ``manifest_json``), so each package resumes the other's
-flows.
+``mapping_<l>``, ``manifest_json`` with its ``stream`` entry), so each
+package resumes the other's flows, stream flows included.
 
 ``CompiledLUTNetwork`` owns everything inference needs (tables, mappings,
 the two boundary quantizers, the config) and lives on one device, CUDA
@@ -19,7 +24,9 @@ a registered lookup backend once and returns a :class:`PlannedExecutor`
 (quantize -> cascade -> dequantize); ``save``/``load`` read and write the
 reference's ``.npz`` format (``meta_json``, ``table_<l>``, ``mapping_<l>``,
 ``plan__<backend>__<buf>``, ``extra``), so each package serves the other's
-artifacts, persisted fused plans included.
+artifacts, persisted fused plans included.  ``hw_report`` / ``to_verilog``
+give the analytic FPGA cost (``core.hwcost``) and the Verilog
+(``core.rtl``) of the folded network.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import torch
 
 from repro_torch import backends
 from repro_torch import device as _device
-from repro_torch.core import assemble, folding, pruning, quant
+from repro_torch.core import assemble, folding, hwcost, pruning, quant
 from repro_torch.core.assemble import AssembleConfig, LayerSpec, LUTNet
 from repro_torch.core.folding import FoldedNetwork
 from repro_torch.train import lut_trainer
@@ -257,6 +264,17 @@ class CompiledLUTNetwork:
         """Total table entries over all layers."""
         return int(sum(t.shape[0] * t.shape[1] for t in self.tables))
 
+    # -- hardware ------------------------------------------------------------
+    def hw_report(self, pipeline_every: int = 3) -> hwcost.HwReport:
+        """Analytic LUT count, Fmax, latency and area-delay product."""
+        return hwcost.report(self.cfg, pipeline_every=pipeline_every)
+
+    def to_verilog(self, **kw) -> str:
+        """One synthesizable Verilog module of the folded network
+        (``rtl.emit_verilog`` keywords)."""
+        from repro_torch.core import rtl
+        return rtl.emit_verilog(self.folded(), **kw)
+
     # -- persistence ---------------------------------------------------------
     def save(self, path: str) -> str:
         """Write one ``.npz`` in the reference's format; plans computed so
@@ -337,8 +355,10 @@ class Toolflow:
     ``compile``), each returning ``self`` (``compile`` returns the
     artifact).  ``retrain`` without ``prune`` uses random mappings.
     ``stages`` records what ran.  Every stage runs on ``device`` (CUDA by
-    default).  Stream cells (slice 3) and ``search`` (slice 4) are not
-    ported yet and raise ``NotImplementedError``.
+    default).  A :class:`~repro_torch.stream.cell.StreamCellConfig` routes
+    the flow through the sequential paths: truncated BPTT over ``tbptt``
+    steps, last-step accuracy and ``compile`` -> ``CompiledStreamCell``.
+    ``search`` is not ported yet and raises ``NotImplementedError``.
     """
 
     def __init__(self, cfg, *, pretrain_steps: int = 120,
@@ -346,12 +366,18 @@ class Toolflow:
                  pretrain_lr: Optional[float] = None,
                  batch_size: int = 256, lasso: float = 1e-4,
                  weight_decay: float = 1e-4, sgdr_t0: int = 100,
-                 seed: int = 0, max_train: int = 4096, device=None):
+                 seed: int = 0, max_train: int = 4096, tbptt: int = 8,
+                 device=None):
         """Hold the config and hyperparameters; nothing runs yet."""
+        # duck-typed, so this module never imports repro_torch.stream at
+        # import time (stream.cell imports this module)
         if hasattr(cfg, "net") and hasattr(cfg, "n_state"):
-            raise NotImplementedError(
-                "stream cells belong to slice 3 of the port (ROADMAP A.10)")
+            self.cell = cfg
+            cfg = cfg.net
+        else:
+            self.cell = None
         self.cfg = cfg
+        self.tbptt = tbptt
         self.device = _device.resolve(device)
         self.hyper = dict(pretrain_steps=pretrain_steps,
                           retrain_steps=retrain_steps, lr=lr,
@@ -383,12 +409,17 @@ class Toolflow:
         (mapping layers read the whole previous layer)."""
         h = self.hyper
         t0 = time.time()
-        res = lut_trainer.train(
-            self.cfg, data, dense=True, lasso=h["lasso"],
-            steps=h["pretrain_steps"],
-            lr=h["pretrain_lr"] if h["pretrain_lr"] is not None else h["lr"],
-            batch_size=h["batch_size"], weight_decay=h["weight_decay"],
-            seed=h["seed"], max_train=h["max_train"], device=self.device)
+        kw = dict(dense=True, lasso=h["lasso"], steps=h["pretrain_steps"],
+                  lr=h["pretrain_lr"] if h["pretrain_lr"] is not None
+                  else h["lr"],
+                  batch_size=h["batch_size"], weight_decay=h["weight_decay"],
+                  seed=h["seed"], max_train=h["max_train"],
+                  device=self.device)
+        if self.cell is not None:
+            res = lut_trainer.train_stream(self.cell, data, tbptt=self.tbptt,
+                                           **kw)
+        else:
+            res = lut_trainer.train(self.cfg, data, **kw)
         self.data = data
         self.dense_params = res.params
         self._record("pretrain", t0, final_loss=res.losses[-1],
@@ -412,12 +443,16 @@ class Toolflow:
             "data", "pretrain", "retrain")
         h = self.hyper
         t0 = time.time()
-        res = lut_trainer.train(
-            self.cfg, data, mappings=self.mappings,
-            steps=h["retrain_steps"], lr=h["lr"],
-            batch_size=h["batch_size"], weight_decay=h["weight_decay"],
-            sgdr_t0=h["sgdr_t0"], seed=h["seed"], max_train=h["max_train"],
-            device=self.device)
+        kw = dict(mappings=self.mappings, steps=h["retrain_steps"],
+                  lr=h["lr"], batch_size=h["batch_size"],
+                  weight_decay=h["weight_decay"], sgdr_t0=h["sgdr_t0"],
+                  seed=h["seed"], max_train=h["max_train"],
+                  device=self.device)
+        if self.cell is not None:
+            res = lut_trainer.train_stream(self.cell, data, tbptt=self.tbptt,
+                                           **kw)
+        else:
+            res = lut_trainer.train(self.cfg, data, **kw)
         self.data = data
         self.params = res.params
         self._record("retrain", t0, final_loss=res.losses[-1],
@@ -425,12 +460,22 @@ class Toolflow:
                      learned_mappings=self.mappings is not None)
         return self
 
-    def compile(self, *, backend: Optional[str] = None) -> CompiledLUTNetwork:
-        """Phase 4: exhaustive fold into the deployment artifact."""
+    def compile(self, *, backend: Optional[str] = None):
+        """Phase 4: exhaustive fold into the deployment artifact, a
+        :class:`CompiledLUTNetwork` or, for stream flows, a
+        :class:`~repro_torch.stream.cell.CompiledStreamCell`."""
         params = self._require("params", "retrain", "compile")
         t0 = time.time()
-        self.compiled = compile_network(params, self.cfg, backend=backend)
-        self._record("compile", t0, entries=self.compiled.num_entries())
+        if self.cell is not None:
+            from repro_torch.stream import cell as stream_cell
+            self.compiled = stream_cell.compile_cell(params, self.cell,
+                                                     backend=backend)
+            entries = self.compiled.net.num_entries()
+        else:
+            self.compiled = compile_network(params, self.cfg,
+                                            backend=backend)
+            entries = self.compiled.num_entries()
+        self._record("compile", t0, entries=entries)
         return self.compiled
 
     def run(self, data) -> CompiledLUTNetwork:
@@ -449,6 +494,10 @@ class Toolflow:
         data = data if data is not None else self._require(
             "data", "pretrain", "accuracy")
         params = self._require("params", "retrain", "accuracy")
+        if self.cell is not None:
+            return lut_trainer.stream_accuracy(self.cell, params, data,
+                                               folded=folded,
+                                               max_eval=max_eval)
         return lut_trainer.accuracy(self.cfg, params, data, folded=folded,
                                     max_eval=max_eval)
 
@@ -469,7 +518,11 @@ class Toolflow:
             arrays.update(_tree_to_arrays("sparse_", self.params))
             done.append("retrain")
         manifest = {"config": config_to_dict(self.cfg), "hyper": self.hyper,
-                    "done": done, "stream": None}
+                    "done": done,
+                    "stream": None if self.cell is None else {
+                        "n_in": self.cell.n_in,
+                        "n_state": self.cell.n_state,
+                        "tbptt": self.tbptt}}
         return _save_npz(path, arrays, "manifest_json", manifest)
 
     @classmethod
@@ -478,11 +531,16 @@ class Toolflow:
         default)."""
         data, manifest = _open_npz(path, "manifest_json")
         with data:
-            if manifest.get("stream"):
-                raise NotImplementedError(
-                    "stream flows belong to slice 3 of the port")
             cfg = config_from_dict(manifest["config"])
-            flow = cls(cfg, device=device, **manifest["hyper"])
+            stream = manifest.get("stream")
+            if stream:
+                from repro_torch.stream.cell import StreamCellConfig
+                flow = cls(StreamCellConfig(net=cfg, n_in=stream["n_in"],
+                                            n_state=stream["n_state"]),
+                           tbptt=stream["tbptt"], device=device,
+                           **manifest["hyper"])
+            else:
+                flow = cls(cfg, device=device, **manifest["hyper"])
             seed = flow.hyper["seed"]
             if "prune" in manifest["done"]:
                 flow.mappings = [

@@ -11,6 +11,13 @@ card without blocking, launches the cascade on the current stream, copies
 codes and logits back into pinned host buffers with ``non_blocking=True``
 and records a ``torch.cuda.Event``; retiring a block synchronizes that
 event.  On the CPU the engine is synchronous.
+
+**Cell mode** (``cell=``, a :class:`~repro_torch.stream.cell.CompiledStreamCell`):
+the block function is the folded recurrent step.  Each request carries its
+state codes in (``submit(state=)``) and gets its next-state codes back
+(``next_state``); the pinned slots hold a state-in and a next-state-out
+column beside the rows, and a request's next state is read from its slot
+only after the block's event has completed.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import backends
 from repro_torch.pipeline import CompiledLUTNetwork
 
 
@@ -47,6 +55,14 @@ class LUTRequest:
     logits: Optional[np.ndarray] = None
     done: bool = False
     attempts: int = 0
+    # wall-clock admission time, stamped by the stream router for its step
+    # latency; 0.0 = unstamped
+    t_submit: float = 0.0
+    # cell mode: the state codes this step consumes, the next-state codes
+    # it produced, and the stream the step belongs to
+    state: Optional[np.ndarray] = None       # [n_state] int32
+    next_state: Optional[np.ndarray] = None  # [n_state] int32
+    stream_id: Optional[object] = None
 
 
 LATENCY_WINDOW = 10_000
@@ -81,15 +97,24 @@ class LUTEngineStats:
 
 
 class _Slot:
-    """Pinned host staging for one in-flight block on a CUDA network."""
+    """Pinned host staging for one in-flight block on a CUDA network (with
+    a state-in and a next-state-out column in cell mode, ``n_state > 0``)."""
 
-    def __init__(self, block: int, in_features: int, n_out: int):
+    def __init__(self, block: int, in_features: int, n_out: int,
+                 n_state: int = 0):
+        """Pinned buffers for a block of ``block`` rows."""
+        pinned = dict(pin_memory=True)
         self.x = torch.zeros((block, in_features), dtype=torch.float32,
-                             pin_memory=True)
-        self.codes = torch.empty((block, n_out), dtype=torch.int32,
-                                 pin_memory=True)
+                             **pinned)
+        self.codes = torch.empty((block, n_out), dtype=torch.int32, **pinned)
         self.logits = torch.empty((block, n_out), dtype=torch.float32,
-                                  pin_memory=True)
+                                  **pinned)
+        self.state = self.next_state = None
+        if n_state:
+            self.state = torch.zeros((block, n_state), dtype=torch.int32,
+                                     **pinned)
+            self.next_state = torch.empty((block, n_state),
+                                          dtype=torch.int32, **pinned)
         self.done: Optional[torch.cuda.Event] = None
 
     def wait(self) -> None:
@@ -99,14 +124,23 @@ class _Slot:
 
 
 class LUTEngine:
-    """Double-buffered micro-batching engine over one planned backend."""
+    """Double-buffered micro-batching engine over one planned backend, or
+    over a stream cell's folded step (``cell=``)."""
 
     def __init__(self, net: CompiledLUTNetwork, *, block: int = 256,
-                 backend: Optional[str] = None, depth: int = 1):
+                 backend: Optional[str] = None, depth: int = 1,
+                 cell=None, mesh=None, placement=None):
         """Plan ``backend`` (default: the network's) for blocks of
-        ``block`` rows with up to ``depth`` blocks in flight."""
+        ``block`` rows with up to ``depth`` blocks in flight.  ``cell`` is a
+        :class:`~repro_torch.stream.cell.CompiledStreamCell` wrapping
+        ``net`` (cell mode).  Meshes and placements are not ported yet and
+        raise."""
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
+        if mesh is not None or placement is not None:
+            raise NotImplementedError(
+                "LUTEngine over a device mesh or placement is not ported yet "
+                "(ROADMAP A.11)")
         self.net = net
         self._block = int(block)
         self._depth = int(depth)
@@ -114,18 +148,40 @@ class LUTEngine:
         self.stats = LUTEngineStats()
         self._next_rid = 0
         self._now = time.perf_counter
-        # (requests, codes, logits, slot-or-None, t_dispatch), oldest first
+        # (requests, codes, logits, next state, t_dispatch, slot), oldest
+        # first; on the card the arrays are None and come from the slot
         self._inflight: Deque[Tuple] = collections.deque()
-        self._in_features = net.cfg.in_features
-        self._executor = net.compile_backend(backend or net.backend)
-        self._backend = self._executor.backend
+        self._cell = cell
+        self._n_state = 0
+        if cell is not None:
+            # cell mode: the block function is the folded recurrent step
+            if net is not cell.net:
+                raise ValueError("cell= must wrap the engine's net")
+            self._in_features = cell.cell.n_in
+            self._n_state = cell.cell.n_state
+            self._zero_state = cell.cell.zero_state_code()
+            step = cell.raw_step(backend)
+            self._backend = backends.resolve(backend or net.backend).name
+            self._fwd = step
+            n_out = cell.cell.n_out
+        else:
+            self._in_features = net.cfg.in_features
+            executor = net.compile_backend(backend or net.backend)
+            self._backend = executor.backend
+            self._fwd = executor.codes_and_logits
+            n_out = net.cfg.layers[-1].units
         self._cuda = net.device.type == "cuda"
         self._slots: List[_Slot] = []
         self._next_slot = 0
         if self._cuda:
-            n_out = net.cfg.layers[-1].units
-            self._slots = [_Slot(self._block, self._in_features, n_out)
+            self._slots = [_Slot(self._block, self._in_features, n_out,
+                                 self._n_state)
                            for _ in range(self._depth)]
+
+    @property
+    def cell(self):
+        """The CompiledStreamCell in cell mode, else None."""
+        return self._cell
 
     @property
     def block(self) -> int:
@@ -162,34 +218,64 @@ class LUTEngine:
         return len(self._inflight)
 
     # -- queueing ------------------------------------------------------------
-    def submit(self, x: np.ndarray) -> LUTRequest:
-        """Enqueue one input row; returns the request handle."""
-        req = LUTRequest(rid=self._next_rid, x=np.asarray(x, np.float32))
+    def submit(self, x: np.ndarray, *, state: Optional[np.ndarray] = None,
+               stream_id=None) -> LUTRequest:
+        """Enqueue one input row; returns the request handle.  In cell mode
+        ``state`` is the step's state codes (default: the initial state)."""
+        if self._cell is not None and state is None:
+            state = np.full((self._n_state,), self._zero_state, np.int32)
+        req = LUTRequest(rid=self._next_rid, x=np.asarray(x, np.float32),
+                         state=state, stream_id=stream_id)
         self._next_rid += 1
         self.queue.append(req)
         self.stats.requests += 1
         return req
 
-    def submit_many(self, xs: np.ndarray) -> List[LUTRequest]:
-        """Enqueue every row of ``xs`` with one dtype conversion."""
+    def submit_many(self, xs: np.ndarray, *,
+                    states: Optional[np.ndarray] = None) -> List[LUTRequest]:
+        """Enqueue every row of ``xs`` with one dtype conversion.  In cell
+        mode ``states`` (``[n, n_state]`` codes, default the initial state)
+        ride along."""
         xs = np.asarray(xs, np.float32)
         base = self._next_rid
-        reqs = [LUTRequest(rid=base + i, x=row) for i, row in enumerate(xs)]
+        if self._cell is not None:
+            if states is None:
+                states = np.full((len(xs), self._n_state), self._zero_state,
+                                 np.int32)
+            else:
+                states = np.asarray(states, np.int32)
+            reqs = [LUTRequest(rid=base + i, x=row, state=s)
+                    for i, (row, s) in enumerate(zip(xs, states))]
+        else:
+            reqs = [LUTRequest(rid=base + i, x=row)
+                    for i, row in enumerate(xs)]
         self._next_rid += len(reqs)
         self.queue.extend(reqs)
         self.stats.requests += len(reqs)
         return reqs
 
     # -- the pump ------------------------------------------------------------
+    def _fill_state(self, sb: np.ndarray, batch: List[LUTRequest]) -> None:
+        n = len(batch)
+        sb[:n] = [req.state for req in batch]
+        sb[n:] = self._zero_state
+
     def _launch(self, batch: List[LUTRequest]):
-        """Run one padded block; returns (codes, logits, slot)."""
+        """Run one padded block; returns (codes, logits, next state or
+        None) as numpy and no slot on the CPU, or no arrays and the slot on
+        the card."""
         n = len(batch)
         if not self._cuda:
             xb = np.zeros((self._block, self._in_features), np.float32)
             xb[:n] = [req.x for req in batch]
-            codes, logits = self._executor.codes_and_logits(
-                torch.from_numpy(xb))
-            return codes.numpy(), logits.numpy(), None
+            if self._cell is None:
+                codes, logits = self._fwd(torch.from_numpy(xb))
+                return codes.numpy(), logits.numpy(), None, None
+            sb = np.empty((self._block, self._n_state), np.int32)
+            self._fill_state(sb, batch)
+            codes, logits, s_next = self._fwd(torch.from_numpy(xb),
+                                              torch.from_numpy(sb))
+            return codes.numpy(), logits.numpy(), s_next.numpy(), None
         slot = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % len(self._slots)
         slot.wait()
@@ -197,12 +283,18 @@ class LUTEngine:
         xb[:n] = [req.x for req in batch]
         xb[n:] = 0.0
         x_dev = slot.x.to(self.net.device, non_blocking=True)
-        codes, logits = self._executor.codes_and_logits(x_dev)
+        if self._cell is None:
+            codes, logits = self._fwd(x_dev)
+        else:
+            self._fill_state(slot.state.numpy(), batch)
+            s_dev = slot.state.to(self.net.device, non_blocking=True)
+            codes, logits, s_next = self._fwd(x_dev, s_dev)
+            slot.next_state.copy_(s_next, non_blocking=True)
         slot.codes.copy_(codes, non_blocking=True)
         slot.logits.copy_(logits, non_blocking=True)
         slot.done = torch.cuda.Event()
         slot.done.record()
-        return None, None, slot
+        return None, None, None, slot
 
     def dispatch_block(self) -> List[LUTRequest]:
         """Pad up to ``block`` queued requests and launch the cascade
@@ -216,13 +308,13 @@ class LUTEngine:
             return batch
         t0 = self._now()
         try:
-            codes, logits, slot = self._launch(batch)
+            codes, logits, s_next, slot = self._launch(batch)
         except BaseException:
             for req in batch:
                 req.attempts += 1
             self.queue.extendleft(reversed(batch))
             raise
-        self._inflight.append((batch, codes, logits, slot, t0))
+        self._inflight.append((batch, codes, logits, s_next, t0, slot))
         self.stats.rows_padded += self._block - len(batch)
         self.stats.ticks += 1
         return batch
@@ -249,16 +341,23 @@ class LUTEngine:
         requests and return them ([] when nothing is in flight)."""
         if not self._inflight:
             return []
-        batch, codes, logits, slot, _t0 = self._inflight.popleft()
+        batch, codes, logits, s_next, _t0, slot = self._inflight.popleft()
         if slot is not None:
+            # the block's event covers every copy back, next state included:
+            # nothing of the slot is read before it has completed
             slot.wait()
             n = len(batch)
             codes = slot.codes[:n].numpy().copy()
             logits = slot.logits[:n].numpy().copy()
+            if slot.next_state is not None:
+                s_next = slot.next_state[:n].numpy().copy()
         for req, c, lg in zip(batch, list(codes), list(logits)):
             req.codes = c
             req.logits = lg
             req.done = True
+        if s_next is not None:
+            for req, s in zip(batch, list(s_next)):
+                req.next_state = s
         return batch
 
     def tick(self) -> int:

@@ -10,6 +10,7 @@ AdamW + SGDR from :mod:`repro_torch.train.optim`.  Every affine of the
 forward, and the ``dx`` of its backward, runs through kernel K4 on the
 card.  The loop keeps each step's loss on the device and reads them all
 once at the end, so the host never waits on the card inside the loop.
+:func:`train_stream` trains recurrent stream cells with truncated BPTT.
 Population training (``rolled``) belongs to the search slice.
 """
 from __future__ import annotations
@@ -98,6 +99,130 @@ def train(cfg: AssembleConfig, data: Dataset, *, steps: int = 200,
         hist.append(loss)
     return TrainResult(params=net,
                        losses=torch.stack(hist).tolist() if hist else [])
+
+
+# ---------------------------------------------------------------------------
+# Sequential tasks: truncated BPTT over repro_torch.stream cells
+# ---------------------------------------------------------------------------
+
+def train_stream_step(net: LUTNet, cell, ocfg: optim.AdamWConfig,
+                      opt: optim.AdamWState, xb: torch.Tensor,
+                      yb: torch.Tensor, *, window: int, dense: bool = False,
+                      lasso: float = 0.0, batch_stats: bool = True):
+    """One truncated-BPTT step on sequences ``xb [B, T, n_in]``: the state
+    is detached every ``window`` steps, the classification loss is read at
+    the last step of every window and averaged (plus the group lasso),
+    then backward and AdamW.  Returns (new optimizer state, loss tensor);
+    ``net`` is updated in place, its BN statistics refreshed at every step
+    (``batch_stats=False`` normalizes with the running statistics).
+
+    With frozen statistics (``batch_stats=False``) the loss depends on the
+    BN running statistics the step started from, through every step's EMA,
+    so they get a gradient, as the reference's carried parameters do: they
+    are made leaves of the graph for the step, and AdamW moves the
+    refreshed statistics by it."""
+    from repro_torch.stream import cell as cell_mod
+    for p in net.parameters():
+        p.grad = None
+    if not batch_stats:
+        for layer in net.layers:
+            bn = layer.subnet.bn
+            bn.mean = bn.mean.detach().requires_grad_(True)
+            bn.var = bn.var.detach().requires_grad_(True)
+    start = assemble.leaves(net)
+    s = torch.zeros((xb.shape[0], cell.n_state), dtype=xb.dtype,
+                    device=xb.device)
+    starts = range(0, xb.shape[1], window)
+    total = 0.0
+    for lo in starts:
+        ys, s = cell_mod.apply_sequence(net, cell, xb[:, lo:lo + window], s,
+                                        training=True, dense=dense,
+                                        bn_batch_stats=batch_stats)
+        logits = ys[:, -1]
+        total = total + (losses.binary_cross_entropy(logits, yb)
+                         if cell.n_out == 1 else
+                         losses.softmax_cross_entropy(logits, yb))
+        s = s.detach()
+    loss = total / len(starts)
+    if lasso:
+        loss = loss + lasso * assemble.group_lasso(net, cell.net)
+    loss.backward()
+    for layer in net.layers:
+        bn = layer.subnet.bn
+        bn.mean, bn.var = bn.mean.detach(), bn.var.detach()
+    grads = [p.grad if p.requires_grad else None for p in start]
+    opt, _ = optim.adamw_update(ocfg, assemble.leaves(net), grads, opt)
+    return opt, loss.detach()
+
+
+def train_stream(cell, data, *, steps: int = 200, lr: float = 5e-3,
+                 batch_size: int = 64, dense: bool = False,
+                 mappings: Optional[Sequence] = None, lasso: float = 0.0,
+                 weight_decay: float = 1e-4, sgdr_t0: int = 0, seed: int = 0,
+                 max_train: int = 2048, tbptt: int = 0,
+                 bn_freeze_frac: float = 0.25, device=None) -> TrainResult:
+    """Train a :class:`~repro_torch.stream.cell.StreamCellConfig` on
+    ``[N, T, n_in]`` sequences (``data.synthetic.SeqDataset``) labelled per
+    sequence, on ``device`` (CUDA by default).
+
+    The loop carries the *fake-quantized* state values between steps, the
+    training-graph image of the folded cell's code-space recurrence.  With
+    ``tbptt=k > 0`` the gradient is cut every ``k`` steps and the loss read
+    at the last step of every window (averaged); ``tbptt=0`` backprops
+    through the whole sequence with the loss at the final step only.  The
+    last ``bn_freeze_frac`` of the steps train with frozen-stats BN, the
+    normalization the folded cell deploys.
+    """
+    from repro_torch.stream import cell as cell_mod
+    dev = _device.resolve(device)
+    net = cell_mod.init(seed, cell, dense=dense, mappings=mappings,
+                        device=dev)
+    ocfg = optim.AdamWConfig(
+        lr=lr, weight_decay=weight_decay,
+        schedule=optim.sgdr_schedule(sgdr_t0) if sgdr_t0 else None)
+    opt = optim.adamw_init(assemble.leaves(net))
+    x = torch.from_numpy(np.asarray(data.x_train[:max_train])).to(dev)
+    y = torch.from_numpy(np.asarray(data.y_train[:max_train])).to(dev)
+    t = x.shape[1]
+    window = tbptt if 0 < tbptt < t else t
+    n = x.shape[0]
+    bs = min(batch_size, n)
+    freeze_from = steps - int(steps * bn_freeze_frac)
+    hist = []
+    for i in range(steps):
+        lo = (i * bs) % (n - bs + 1)
+        opt, loss = train_stream_step(
+            net, cell, ocfg, opt, x[lo:lo + bs], y[lo:lo + bs],
+            window=window, dense=dense, lasso=lasso,
+            batch_stats=i < freeze_from)
+        hist.append(loss)
+    return TrainResult(params=net,
+                       losses=torch.stack(hist).tolist() if hist else [])
+
+
+@torch.no_grad()
+def stream_accuracy(cell, params: LUTNet, data, *, folded: bool = False,
+                    max_eval: int = 1024,
+                    backend: Optional[str] = None) -> float:
+    """Sequence-classification accuracy (logits read at the last step), on
+    the parameters' device.  ``folded=True`` evaluates the compiled cell's
+    integer-code recurrence (the deployed semantics) instead of the
+    fake-quant training graph."""
+    from repro_torch.stream import cell as cell_mod
+    x = np.asarray(data.x_test[:max_eval], np.float32)
+    y = np.asarray(data.y_test[:max_eval])
+    if folded:
+        comp = cell_mod.compile_cell(params, cell, backend=backend)
+        _, logits_seq, _ = comp.predict_sequence(x)
+    else:
+        logits_seq, _ = cell_mod.apply_sequence(params, cell, x,
+                                                training=False)
+    logits = logits_seq[:, -1].cpu().numpy()
+    if cell.n_out == 1:
+        pred = (logits[:, 0] > 0).astype(np.int32)
+    else:
+        pred = logits.argmax(-1)
+    return float((pred == y).mean())
 
 
 @torch.no_grad()

@@ -648,3 +648,105 @@ def test_lookup_kernel_shapes_and_clamped_addresses(units, cuda):
                 assert build.launch_counts()["lut_lookup"] == 1
                 assert torch.equal(got, lut_gather.lut_lookup_plain(
                     table, addr.clamp(0, entries - 1)))
+
+
+# ---------------------------------------------------------------------------
+# stream serving (cell mode) on the card
+# ---------------------------------------------------------------------------
+
+def _stream_cell(tmp_path, seed=0):
+    """``seqmnist_reduced`` folded on the CPU from a seeded init and saved;
+    returns (artifact path, CPU cell)."""
+    from repro_torch.core import assemble
+    from repro_torch.stream import cell as stream_cell
+    cc = paper_tasks.stream_task_config("seqmnist_reduced")
+    params = assemble.init(seed, cc.net, device="cpu")
+    cpu = stream_cell.compile_cell(params, cc)
+    return cpu.save(str(tmp_path / "cell.npz")), cpu
+
+
+def _stream_inputs(n, t, seed):
+    return (np.random.RandomState(seed).uniform(0, 1, (n, t, 16))
+            > 0.5).astype(np.float32)
+
+
+def test_cell_engine_on_card_serves_ragged_blocks_like_take(cuda, tmp_path):
+    """300 streams x 7 steps over blocks of 64 (ragged last blocks) through
+    a cell-mode engine on the card: ``fused`` (K1, one launch a block) and
+    ``pallas`` (K3, one a layer a block) equal ``take`` on the card and the
+    CPU, codes and state, step by step."""
+    from repro_torch.stream import cell as stream_cell
+    path, cpu = _stream_cell(tmp_path)
+    card = stream_cell.CompiledStreamCell.load(path, device=cuda)
+    xs = _stream_inputs(300, 7, seed=1)
+    want, _, want_s = cpu.predict_sequence(xs, backend="take")
+    take, _, take_s = card.predict_sequence(xs, backend="take")
+    assert torch.equal(take.cpu(), want) and torch.equal(take_s.cpu(), want_s)
+    layers = len(card.cell.net.layers)
+    for backend, kname, per_block in (("fused", "lut_cascade_resident", 1),
+                                      ("pallas", "lut_lookup", layers)):
+        eng = LUTEngine(card.net, cell=card, block=64, depth=2,
+                        backend=backend)
+        states = card.init_state_codes(300).cpu().numpy()
+        build.reset_counters()
+        for t in range(7):
+            reqs = eng.submit_many(xs[:, t], states=states)
+            while eng.queue:
+                eng.tick()
+            eng.drain()
+            np.testing.assert_array_equal(
+                np.stack([r.codes for r in reqs]), want[:, t].numpy(),
+                err_msg=f"{backend} step {t}")
+            states = np.stack([r.next_state for r in reqs])
+        np.testing.assert_array_equal(states, want_s.numpy())
+        assert eng.stats.ticks == 7 * 5
+        assert build.launch_counts()[kname] == per_block * eng.stats.ticks
+
+
+def test_router_on_card_keeps_next_state_per_stream_at_depth_2(cuda,
+                                                               tmp_path):
+    """Streams of different lengths share blocks with two blocks in flight:
+    every stream's codes and final state equal its own offline scan, so no
+    next state crossed to another stream."""
+    from repro_torch.stream import cell as stream_cell
+    from repro_torch.stream.session import StreamRouter
+    path, cpu = _stream_cell(tmp_path, seed=2)
+    card = stream_cell.CompiledStreamCell.load(path, device=cuda)
+    rs = np.random.RandomState(3)
+    seqs = {i: _stream_inputs(1, int(rs.randint(1, 12)), seed=10 + i)[0]
+            for i in range(150)}
+    for backend in ("fused", "pallas"):
+        router = StreamRouter(card, block=64, depth=2, backend=backend)
+        sessions = router.run_sequences(seqs)
+        for i, xs in seqs.items():
+            want, _, s_fin = cpu.predict_sequence(xs[None], backend="take")
+            np.testing.assert_array_equal(sessions[i].codes(), want[0].numpy(),
+                                          err_msg=f"{backend} stream {i}")
+            np.testing.assert_array_equal(sessions[i].final_state,
+                                          s_fin[0].numpy())
+
+
+def test_stream_toolflow_on_card_round_trips_its_state(cuda, tmp_path):
+    """A stream ``Toolflow`` trained on the card (K4 forward and backward)
+    resumes from ``save_state`` on the card and on the CPU with equal
+    parameters, accuracy and folded codes."""
+    from repro_torch.data.synthetic import SeqDataset
+    cc = paper_tasks.stream_task_config("seqmnist_reduced")
+    xs = _stream_inputs(96, 10, seed=4)
+    y = (xs[:, :3].sum((1, 2)) > 24).astype(np.int32)
+    data = SeqDataset("toy", xs[16:], y[16:], xs[:16], y[:16], 10)
+    build.reset_counters()
+    flow = pipeline.Toolflow(cc, pretrain_steps=2, retrain_steps=2,
+                             batch_size=32, tbptt=4, device=cuda)
+    comp = flow.run(data)
+    assert build.launch_counts().get("unit_affine", 0) > 0
+    path = flow.save_state(str(tmp_path / "flow.npz"))
+    for dev in (cuda, "cpu"):
+        back = pipeline.Toolflow.load_state(path, device=dev)
+        assert back.cell == cc and back.tbptt == 4
+        for a, b in zip(back.params.parameters(), flow.params.parameters()):
+            assert torch.equal(a.cpu(), b.cpu())
+        assert back.accuracy(data, folded=True) == flow.accuracy(folded=True)
+        np.testing.assert_array_equal(
+            back.compile().predict_sequence(xs[:16])[0].cpu().numpy(),
+            comp.predict_sequence(xs[:16])[0].cpu().numpy())

@@ -82,3 +82,20 @@ def test_entry_points_refuse_to_run_on_cpu_by_default(tmp_path):
     model = lm.init_params(lcfg, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(lcfg, model, slots=1, context=16)
+    # the stream path: a stream Toolflow, a cell artifact's load, and so a
+    # router over a loaded cell, run on the card unless told otherwise
+    from repro_torch.core import assemble
+    from repro_torch.stream import cell as stream_cell
+    from repro_torch.stream.session import StreamRouter
+    cc = paper_tasks.stream_task_config("seqmnist_reduced")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.Toolflow(cc)
+    assert pipeline.Toolflow(cc, device="cpu").cell == cc
+    cell = stream_cell.compile_cell(assemble.init(0, cc.net, device="cpu"),
+                                    cc)
+    cpath = cell.save(str(tmp_path / "cell.npz"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamRouter(stream_cell.CompiledStreamCell.load(cpath))
+    router = StreamRouter(stream_cell.CompiledStreamCell.load(
+        cpath, device="cpu"), block=4)
+    assert router.engine.net.device.type == "cpu"
