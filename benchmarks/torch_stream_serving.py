@@ -19,8 +19,9 @@ behind a ``StreamRouter``.
     backend; every stream's full sequence must equal ``predict_sequence``
     on that backend.
 
-The reference benchmark's hot-swap part serves through the multi-tenant
-fleet, which the port does not have yet (ROADMAP A.11); it is left out.
+The reference benchmark's hot-swap part (a stateful swap through the
+multi-tenant fleet) is not timed here: ``tests/test_torch_fleet.py`` holds
+the fleet's stream lane and its swaps against the reference.
 
     python3 benchmarks/torch_stream_serving.py [--device cuda] [--out PATH]
 

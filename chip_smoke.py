@@ -32,14 +32,23 @@ shapes, and drives both main paths:
   ``fused`` (K1) and ``pallas`` (K3) backends, every stream against the
   offline scan on the card and the CPU; ``hw_report``, ``to_verilog``,
   ``count_luts``, ``calibration_vs_rtl`` and ``dontcare.analyze`` of the
-  card-folded ``mnist`` artifact, its Verilog against a CPU load's.
+  card-folded ``mnist`` artifact, its Verilog against a CPU load's;
+* the serving tier (slice 9): four tenants (``nid``, ``jsc_openml``,
+  ``mnist`` on ``fused``, K1/K2; ``nid`` again on ``pallas``, K3) served
+  from saved artifacts through one ``LUTFleet`` on a ragged trace, every
+  tenant against ``take`` on the card and a CPU load; a hot swap to the
+  card-trained ``mnist`` artifact under load and a corrupted candidate
+  rolled back; ``nid`` batch-split (K1) and units-split (K3) over 2 device
+  slots; one fault scenario per class through ``FaultInjector``; stream
+  failover of the phase-8 cell through ``ReplicatedStreamTenant``.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
 is timed.  Any failed phase exits nonzero.  The last three lines of
 standard output are a JSON object with every kernel's launches, error and
 times, the card's ``name, power.limit``, then ``{"ok": true, "device":
-{...}}``.  A full report goes to ``build/chip_smoke/report.json``.
+{...}}``; a ``{"fleet": ...}`` line comes before them.  A full report goes
+to ``build/chip_smoke/report.json``.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -54,6 +63,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))   # traffic.py (numpy only)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # H100 SXM non-tensor f32 rate, used for int32
@@ -1455,6 +1465,7 @@ def stream_phase(dev, smi: str, seed: int, art_dir: Path) -> dict:
           f"{out['folded_accuracy']:.4f} [{smi}]", flush=True)
 
     path = comp.save(str(art_dir / "seqmnist_cell.npz"))
+    out["artifact"] = path
     card = stream_cell.CompiledStreamCell.load(path, device=dev)
     cpu = stream_cell.CompiledStreamCell.load(path, device="cpu")
     want, _, want_s = cpu.predict_sequence(xs, backend="take")
@@ -1520,6 +1531,559 @@ def hw_surfaces(path: str, dev, smi: str) -> dict:
           f"{cal['ratio']}; don't-care {dc.structural_luts} -> "
           f"{dc.optimized_luts} LUTs ({dc.lut_reduction:.3f}x) "
           f"({out['seconds']:.1f} s)", flush=True)
+    return out
+
+
+FLEET_EVENTS = 128           # the reference fleet benchmark's trace length
+FLEET_BLOCK = 256            # rows a block of every fleet lane
+FLEET_TENANTS = (("nid", "nid", "fused", "lut_cascade_resident"),
+                 ("jsc_openml", "jsc_openml", "fused", "lut_cascade_resident"),
+                 ("mnist", "mnist", "fused", "lut_cascade_streamed"),
+                 ("nid_k3", "nid", "pallas", "lut_lookup"))
+LUT_KERNELS = ("lut_cascade_resident", "lut_cascade_streamed", "lut_lookup")
+PLACED_BLOCK = 1024          # a placed lane's block: 512 rows a slot of 2
+
+
+def lut_launches() -> dict:
+    """The LUT kernels' launch counts since the last reset."""
+    from repro_torch.kernels import build
+    counts = build.launch_counts()
+    return {k: counts.get(k, 0) for k in LUT_KERNELS}
+
+
+def fleet_codes(reqs) -> "np.ndarray":
+    import numpy as np
+    return np.stack([r.codes for r in reqs])
+
+
+def fleet_replay(fleet, paths, dev, seed: int, smi: str) -> dict:
+    """The four tenants serve a ragged trace (``tests/traffic.py``) with the
+    launch counts set to 0 just before; fails unless every tenant's codes
+    equal its artifact's ``take`` codes on the card and on a CPU load, K1
+    and K2 launched once a block of their lanes, K3 once a layer a block
+    of its lane (5 at ``nid``), and no lane degraded."""
+    import numpy as np
+    import torch
+    import traffic
+    from repro_torch import pipeline
+    from repro_torch.kernels import build
+
+    mids = tuple(m for m, *_ in FLEET_TENANTS)
+    nets = {m: fleet.registry.get(m).net for m in mids}
+    trace = traffic.ragged_trace(mids, n_events=FLEET_EVENTS, seed=seed + 9)
+    inputs = traffic.make_inputs(
+        trace, {m: n.cfg.in_features for m, n in nets.items()},
+        seed=seed + 10)
+    for m, net in nets.items():                  # lanes and operands built
+        fleet.submit_many(m, np.zeros((1, net.cfg.in_features), np.float32))
+    fleet.pump()
+    before = {m: fleet.stats(m).ticks for m in mids}
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    log = {m: [] for m in mids}
+    for ev, xs in zip(trace, inputs):
+        reqs, dec = fleet.submit_many(ev.model_id, xs)
+        if not dec.admitted_all:
+            fail(f"fleet: {ev.model_id} shed or deferred rows: {dec}")
+        log[ev.model_id].append((xs, reqs))
+        for _ in range(1 + ev.gap_ticks):
+            fleet.tick()
+    fleet.pump()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = lut_launches()
+    blocks = {m: fleet.stats(m).ticks - before[m] for m in mids}
+    want = {"lut_cascade_resident": blocks["nid"] + blocks["jsc_openml"],
+            "lut_cascade_streamed": blocks["mnist"],
+            "lut_lookup": len(nets["nid_k3"].cfg.layers) * blocks["nid_k3"]}
+    if counts != want:
+        fail(f"fleet: launches {counts}, expected {want} for blocks {blocks}")
+    out = {"events": len(trace), "rows": traffic.total_rows(trace),
+           "wall_s": wall, "blocks": blocks, "launches": counts,
+           "tenants": {}}
+    for mid, task, backend, _ in FLEET_TENANTS:
+        pairs = log[mid]
+        if not pairs:
+            continue
+        xs = np.concatenate([x for x, _ in pairs])
+        got = np.concatenate([fleet_codes(r) for _, r in pairs])
+        card = nets[mid].predict_codes(xs, backend="take").cpu().numpy()
+        cpu = pipeline.CompiledLUTNetwork.load(
+            paths[mid], device="cpu").predict_codes(xs, backend="take")
+        if not (np.array_equal(got, card) and np.array_equal(got,
+                                                             cpu.numpy())):
+            fail(f"fleet: {mid} codes differ from its artifact's take codes "
+                 "on the card or the CPU")
+        s = fleet.summary(mid)
+        if s["degrades"] or s["failures"]:
+            fail(f"fleet: lane {mid} failed or degraded: {s}")
+        out["tenants"][mid] = {
+            "task": task, "backend": backend, "rows": len(xs),
+            "blocks": blocks[mid], "rows_per_s": len(xs) / wall,
+            "p50_request_us": fleet.stats(mid).latency_us(50),
+            "p99_request_us": fleet.stats(mid).latency_us(99)}
+    print(f"fleet replay: {out['rows']} rows in {len(trace)} events over 4 "
+          f"tenants, {out['rows'] / wall:,.0f} rows/s, every tenant == take "
+          f"on the card and the CPU; blocks {blocks}, launches {counts}; "
+          + ", ".join(f"{m} p50/p99 {t['p50_request_us']:.0f}/"
+                      f"{t['p99_request_us']:.0f} us"
+                      for m, t in out["tenants"].items()) + f" [{smi}]",
+          flush=True)
+    return out
+
+
+def fleet_idle_share(fleet, smi: str) -> dict:
+    """The device's idle share over 10 profiled fleet ticks with every lane
+    holding work (one block a lane a tick).  A trace that lacks the device
+    work of some launch call would read as idle time, so it is taken again
+    with a longer lead, as ``traced_all_ms`` does; after ``TRACE_LEADS``
+    tries the share is None ("not measured")."""
+    import numpy as np
+    rs = np.random.RandomState(7)
+    for lead in TRACE_LEADS:
+        for mid, *_ in FLEET_TENANTS:           # 3 warm + 11 profiled ticks
+            net = fleet.registry.get(mid).net
+            fleet.submit_many(mid, rs.uniform(-1.0, 1.0, (
+                16 * FLEET_BLOCK, net.cfg.in_features)).astype(np.float32))
+        for _ in range(3):
+            fleet.tick()
+        wall, prof, lost = profile(fleet.tick, calls=10, lead=lead)
+        fleet.pump()
+        if prof and not lost:
+            break
+        RETRACED.append({"kernel": "fleet ticks", "lead": lead,
+                         "lost": lost, "lead_lost": LEAD_LOST[-1]})
+    else:
+        _untraced("the fleet's ticks", f"{lost} launch calls without "
+                  "device work")
+        return {"profiled_ticks": 10, "wall_s": wall, "device_busy_s": None,
+                "device_idle_share": None, "device_kernels": {}}
+    busy = sum(sec for _, sec in prof.values())
+    out = {"profiled_ticks": 10, "wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1.0 - busy / wall, "trace_lead": lead,
+           "device_kernels": {k[:60]: (c, sec * 1e3)
+                              for k, (c, sec) in prof.items()}}
+    print(f"fleet, 10 profiled ticks: wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy * 1e3:.3f} ms, idle share {out['device_idle_share']:.3f} "
+          f"[{smi}]", flush=True)
+    return out
+
+
+def fleet_hot_swap(fleet, inj, trained: str, seed: int) -> dict:
+    """Deploy the card-trained ``mnist`` artifact (phase 6) onto the
+    ``mnist`` lane with blocks in flight, then again with the injector
+    corrupting the candidate's tables.  Fails unless no request is
+    dropped, blocks dispatched before the swap answer with the random
+    version's codes and every later one with the trained version's, the
+    corrupted candidate is rejected by the smoke check and the rollback is
+    in the swap history."""
+    import numpy as np
+    import torch
+    from repro_torch import pipeline
+
+    v1 = fleet.registry.get("mnist").net
+    v2 = pipeline.CompiledLUTNetwork.load(trained, device=v1.device)
+    rs = np.random.RandomState(seed + 11)
+    x = rs.uniform(0.0, 1.0, (6 * FLEET_BLOCK, v1.cfg.in_features)
+                   ).astype(np.float32)
+    first, _ = fleet.submit_many("mnist", x[:4 * FLEET_BLOCK])
+    fleet.tick()                                # blocks in flight on v1
+    queued = {id(r) for r in fleet._lanes["mnist"].engine.queue}
+    ok = fleet.deploy("mnist", trained)         # self-checked
+    second, _ = fleet.submit_many("mnist", x[4 * FLEET_BLOCK:])
+    bad = fleet.deploy("mnist", trained)        # corrupted at load
+    third, _ = fleet.submit_many("mnist", x[:FLEET_BLOCK])
+    fleet.pump()
+    torch.cuda.synchronize()
+    every = first + second + third
+    if not all(r.done for r in every):
+        fail("hot swap: requests dropped")
+    dispatched = {id(r) for r in first} - queued
+    on_v1 = [r for r in every if id(r) in dispatched]
+    on_v2 = [r for r in every if id(r) not in dispatched]
+    for reqs, net, name in ((on_v1, v1, "v1"), (on_v2, v2, "v2")):
+        if reqs and not np.array_equal(fleet_codes(reqs), net.predict_codes(
+                np.stack([r.x for r in reqs]), backend="take").cpu().numpy()):
+            fail(f"hot swap: rows served by {name} differ from its take codes")
+    hist = fleet.summary("mnist")["swap_history"]
+    if not (ok.ok and not bad.ok and inj.fired("corrupt_artifact") == 1
+            and hist[-1]["ok"] is False
+            and fleet.summary("mnist")["version"] == 2):
+        fail(f"hot swap: good {ok}, corrupted {bad}, history {hist}")
+    changed = int((v1.predict_codes(x[:256], backend="take")
+                   != v2.predict_codes(x[:256], backend="take")).any(1).sum())
+    out = {"requests": len(every), "dropped": 0, "served_by_v1": len(on_v1),
+           "served_by_v2": len(on_v2), "versions_differ_on": changed,
+           "swap_history": hist}
+    print(f"fleet hot swap: trained mnist deployed with {len(on_v1)} rows in "
+          f"flight on v1 and {len(on_v2)} served by v2 (the versions differ "
+          f"on {changed} of 256 rows), 0 dropped; corrupted candidate "
+          f"rejected ({bad.reason}), rollback recorded", flush=True)
+    return out
+
+
+def fleet_placements(paths, dev, seed: int, smi: str) -> dict:
+    """``nid`` on ``fused`` batch-split over 2 slots (K1 at 512 rows a
+    slot) and on ``pallas`` units-split over 2 slots (K3 on half of every
+    layer's units), the slots over ``cuda:0..n-1`` (both on ``cuda:0`` on
+    one card); fails unless the codes equal the unplaced ones and each
+    block launched K1 once a slot or K3 once a layer a slot.  The same rows
+    through an unplaced lane give the rows/s to compare with."""
+    import numpy as np
+    import torch
+    from repro_torch import backends, pipeline
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve import LUTFleet
+
+    mesh = make_serving_mesh(slots=2)
+    physical = torch.cuda.device_count()
+    rs = np.random.RandomState(seed + 12)
+    out = {"slots": mesh.size, "physical_devices": physical,
+           "slot_devices": [str(s.device) for s in mesh.slots]}
+
+    def serve(backend, placement, x):
+        """(requests, seconds, launches, blocks, degrades) of ``x`` through
+        a fresh one-tenant fleet, its lane warmed first."""
+        fleet = LUTFleet(block=PLACED_BLOCK, depth=2, device=dev)
+        fleet.register("nid", paths["nid"], backend=backend,
+                       placement=placement)
+        fleet.submit_many("nid", x[:8])
+        fleet.pump()
+        torch.cuda.synchronize()
+        build.reset_counters()
+        t0 = time.perf_counter()
+        reqs, _ = fleet.submit_many("nid", x)
+        fleet.pump()
+        torch.cuda.synchronize()
+        return (reqs, time.perf_counter() - t0, lut_launches(),
+                fleet.stats("nid").ticks - 1, fleet.stats("nid").degrades)
+
+    for name, backend, kname, per_slot in (
+            ("batch", "fused", "lut_cascade_resident", 1),
+            ("units", "pallas", "lut_lookup", None)):
+        net = pipeline.CompiledLUTNetwork.load(paths["nid"], device=dev)
+        x = rs.uniform(-1.0, 1.0, (4 * PLACED_BLOCK + 77, net.cfg.in_features)
+                       ).astype(np.float32)
+        _, base_s, _, _, _ = serve(backend, None, x)
+        reqs, wall, counts, blocks, degrades = serve(
+            backend, backends.Placement(mesh, strategy=name), x)
+        per_block = mesh.size * (per_slot or len(net.cfg.layers))
+        unplaced = net.predict_codes(x, backend=backend).cpu().numpy()
+        if not np.array_equal(fleet_codes(reqs), unplaced):
+            fail(f"placement {name}: codes differ from the unplaced run")
+        if counts[kname] != per_block * blocks or degrades:
+            fail(f"placement {name}: launches {counts} for {blocks} blocks")
+        out[name] = {"backend": backend, "rows": len(x), "blocks": blocks,
+                     "launches": counts, "rows_per_s": len(x) / wall,
+                     "unplaced_rows_per_s": len(x) / base_s}
+        print(f"placement {name} ({backend}) over {mesh.size} slots on "
+              f"{physical} physical device(s) {out['slot_devices']}: {len(x)}"
+              f" rows == unplaced, {blocks} blocks, launches {counts}, "
+              f"{len(x) / wall:,.0f} rows/s (unplaced "
+              f"{len(x) / base_s:,.0f}) [{smi}]", flush=True)
+    return out
+
+
+def fleet_faults(paths, dev, seed: int) -> dict:
+    """One scenario per fault class through ``FaultInjector`` on the
+    ``nid`` lane (``jsc_openml`` beside it): a transient exception
+    (retried), a persistent one (breaker trip, degrade to ``take``), a hang
+    (the deadline abandons the block), device loss on slot 1 of 2 (remesh
+    onto the survivor) and a corrupt deploy (rejected).  Fails unless every
+    answer equals ``take``, no accepted request is lost, and the lane
+    degraded exactly where the scenario injects it."""
+    import numpy as np
+    import traffic
+    from repro_torch import backends
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve import (FaultInjector, FaultPlan, FaultSpec,
+                                   LUTFleet, ResiliencePolicy,
+                                   make_reference)
+
+    policy = ResiliencePolicy(backoff_base_s=0.0)
+    deadline = ResiliencePolicy(deadline_s=0.5, backoff_base_s=0.0)
+    two = backends.Placement(make_serving_mesh(slots=2))
+    scenarios = {
+        "transient": ([FaultSpec("exception", at=1, scope="nid", count=2)],
+                      policy, {}, 0),
+        "persistent": ([FaultSpec("exception", at=1, scope="nid", count=3)],
+                       policy, {}, 1),
+        "hang": ([FaultSpec("hang", at=1, scope="nid", stall_s=2.0)],
+                 deadline, {}, 0),
+        "device_loss": ([FaultSpec("device_loss", at=1, scope="nid",
+                                   device=1)], policy,
+                        {"placement": two}, 1),
+        "corrupt_deploy": ([FaultSpec("corrupt_artifact", at=0,
+                                      scope="nid")], policy, {}, 0),
+    }
+    trace = traffic.ragged_trace(("nid", "jsc_openml"), n_events=24,
+                                 seed=seed + 13, batches=(1, 8, 33, 257))
+    out = {}
+    for name, (specs, pol, reg, degrades) in scenarios.items():
+        inj = FaultInjector(FaultPlan(specs))
+        fleet = LUTFleet(block=FLEET_BLOCK, faults=inj, policy=pol,
+                         device=dev)
+        for mid in ("nid", "jsc_openml"):
+            fleet.register(mid, paths[mid], backend="fused",
+                           **(reg if mid == "nid" else {}))
+        nets = {m: fleet.registry.get(m).net for m in ("nid", "jsc_openml")}
+        ref = make_reference(nets["nid"], n=64)
+        inputs = traffic.make_inputs(
+            trace, {m: n.cfg.in_features for m, n in nets.items()},
+            seed=seed + 14)
+        acked, swap = [], None
+        for i, (ev, xs) in enumerate(zip(trace, inputs)):
+            if name == "corrupt_deploy" and i == len(trace) // 2:
+                swap = fleet.deploy("nid", paths["nid"], reference=ref)
+            reqs, _ = fleet.submit_many(ev.model_id, xs)
+            acked.append((ev.model_id, xs, reqs))
+            fleet.tick()
+        fleet.pump()
+        lost = sum(not r.done for _, _, reqs in acked for r in reqs)
+        wrong = sum(int((fleet_codes(reqs) != nets[m].predict_codes(
+            xs, backend="take").cpu().numpy()).any(1).sum())
+            for m, xs, reqs in acked if reqs)
+        s = fleet.summary("nid")
+        out[name] = {"injected": inj.fired(), "wrong": wrong, "lost": lost,
+                     "failures": s["failures"], "retries": s["retries"],
+                     "deadline_hits": s["deadline_hits"],
+                     "breaker_trips": s["breaker_trips"],
+                     "degrades": s["degrades"],
+                     "degrade_history": s["degrade_history"],
+                     "other_lane_degrades":
+                         fleet.summary("jsc_openml")["degrades"]}
+        if swap is not None:
+            out[name]["deploy"] = swap.summary()
+        bad = (wrong or lost or not inj.fired() or s["degrades"] != degrades
+               or fleet.summary("jsc_openml")["degrades"]
+               or (swap is not None and swap.ok))
+        if name == "device_loss" and s["degrade_history"] != [{
+                "model_id": "nid", "reason": "device_loss",
+                "backend": "fused->fused", "shards": "2->1"}]:
+            bad = True
+        if bad:
+            fail(f"fault scenario {name}: {out[name]}")
+    print(f"fleet faults: {{name: (injected, failures, degrades)}} "
+          f"{ {k: (v['injected'], v['failures'], v['degrades']) for k, v in out.items()} }"
+          f"; 0 wrong, 0 lost in every scenario", flush=True)
+    return out
+
+
+def fleet_failover(cell_path: str, dev, seed: int) -> dict:
+    """The phase-8 ``seqmnist_reduced`` cell served through
+    ``ReplicatedStreamTenant`` on ``fused``; the primary dies mid-trace
+    (a churned stream trace) and the standby recovers.  Fails unless every
+    stream's combined codes equal the offline ``take`` scan and no acked
+    step is lost."""
+    import numpy as np
+    import traffic
+    from repro_torch.serve import LUTFleet
+    from repro_torch.stream.cell import CompiledStreamCell
+    from repro_torch.stream.replica import (ReplicatedStreamTenant,
+                                            StandbyReplica)
+
+    comp = CompiledStreamCell.load(cell_path, device=dev)
+    trace = traffic.stream_churn_trace(["cell"], n_events=120, seed=seed + 15,
+                                       max_open=48, max_steps=12)
+    inputs = traffic.make_stream_inputs(trace, {"cell": comp.cell.n_in},
+                                        seed=seed + 16)
+    seqs = traffic.stream_sequences(trace, inputs)
+    kill = (2 * len(trace)) // 3
+    primary = LUTFleet(block=STREAM_BLOCK)
+    primary.register("cell", comp, block=STREAM_BLOCK, backend="fused")
+    standby = StandbyReplica("cell", cell_path, block=STREAM_BLOCK,
+                             backend="fused")
+    tenant = ReplicatedStreamTenant(primary, "cell", standby,
+                                    checkpoint_every=64)
+    for ev, x in zip(trace[:kill], inputs[:kill]):
+        if ev.action == "open":
+            tenant.open_stream(ev.stream_id)
+        elif ev.action == "feed":
+            tenant.submit(ev.stream_id, x)
+        else:
+            tenant.close_stream(ev.stream_id)
+        primary.tick()
+        tenant.maybe_checkpoint()
+    primary.tick()
+    pre = {sid: [r.codes for r in s.steps]
+           for sid, s in primary._stream_lane("cell").sessions.items()}
+    ckpt = standby.checkpoint
+    t0 = time.perf_counter()
+    fleet2, replayed = standby.activate(device=dev)
+    fleet2.pump()
+    recovery_s = time.perf_counter() - t0
+    for ev, x in zip(trace[kill:], inputs[kill:]):
+        if ev.action == "open":
+            fleet2.open_stream("cell", ev.stream_id)
+        elif ev.action == "feed":
+            fleet2.submit_stream("cell", ev.stream_id, x)
+        else:
+            fleet2.close_stream("cell", ev.stream_id)
+        fleet2.tick()
+    fleet2.pump()
+    lane = fleet2._stream_lane("cell")
+    bad = lost = steps = 0
+    for (_, sid), xs in seqs.items():
+        ref = comp.predict_sequence(xs[None], backend="take")[0][0]
+        ref = ref.cpu().numpy()
+        if sid in lane.sessions:
+            applied = (ckpt.applied_for(sid) if ckpt is not None
+                       and sid in ckpt.stream_ids else 0)
+            got = pre.get(sid, [])[:applied] + [
+                r.codes for r in lane.sessions[sid].steps]
+        else:
+            got = pre.get(sid, [])
+        lost += max(0, len(ref) - len(got))
+        bad += not (len(got) == len(ref) and np.array_equal(
+            np.stack(got), ref))
+        steps += len(ref)
+    out = {"streams": len(seqs), "steps": steps, "killed_at_event": kill,
+           "checkpoints": standby.checkpoints_received,
+           "restored_streams": len(replayed),
+           "replayed_steps": int(sum(replayed.values())),
+           "recovery_s": recovery_s, "mismatched_streams": bad,
+           "lost_steps": lost}
+    if bad or lost or not standby.checkpoints_received:
+        fail(f"stream failover: {out}")
+    print(f"stream failover (seqmnist_reduced, fused): {len(seqs)} streams, "
+          f"{steps} steps; primary killed at event {kill}, "
+          f"{out['restored_streams']} streams restored from checkpoint "
+          f"{standby.checkpoints_received} + {out['replayed_steps']} replayed "
+          f"steps in {recovery_s * 1e3:.1f} ms; every stream == the offline "
+          "take scan, 0 lost", flush=True)
+    return out
+
+
+def fleet_kernels(net, dev, seed: int, smi: str) -> list:
+    """The placed lanes' new call shapes held against their twins and
+    timed at the shapes ``fleet_placements`` gives them: K1 at 512 rows of
+    ``nid`` (a batch shard of a 1024-row block over 2 slots, and ragged
+    shards), K3 on each slot's half of each ``nid`` layer's units at the
+    units lane's padded block of 1024 rows (and smaller batches).  Returns
+    their kernel-line rows (launches filled in by the caller)."""
+    import numpy as np
+    import torch
+    from repro_torch.backends.placement import unit_shard_buffers
+    from repro_torch.kernels import lut_cascade, lut_gather
+
+    rs = np.random.RandomState(seed + 17)
+    plan = net.compile_backend("fused").plan
+    layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
+    tables = plan.tensor("tables", dev)
+    maps = [plan.tensor(f"map_{l}", dev) if f"map_{l}" in plan.buffers
+            else None for l in range(len(layers))]
+    ops = lut_cascade.prepare(tables, layers, maps)
+    span = 2 ** layers[0][5]
+    err1 = 0
+    for rows in (1, 7, 32, 77, 512, 513):
+        codes = torch.from_numpy(rs.randint(0, span, size=(
+            2 * rows, layers[0][0])).astype(np.int32)).to(dev)
+        for shard in (codes[:rows], codes[rows:]):   # both halves' offsets
+            got = lut_cascade.lut_cascade_resident(shard, ops)
+            torch.cuda.synchronize()
+            want = lut_cascade.lut_cascade_plain(shard, tables, maps, layers)
+            err1 = max(err1, int((got - want).abs().max()))
+    lplan = net.compile_backend("pallas").plan
+    bufs = unit_shard_buffers(
+        lplan.meta["layers"], lambda l: lplan.buffers[f"table_{l}"],
+        lambda l: lplan.buffers.get(f"mapping_{l}"), 2)
+    shapes, err3 = [], 0                 # one block's 10 launches: 5 x 2
+    for l in range(len(lplan.meta["layers"])):
+        full = bufs[2 * l]
+        r = full.shape[0] // 2
+        for half in (torch.tensor(full[:r], device=dev),
+                     torch.tensor(full[r:], device=dev)):
+            for rows in (1, 77, 257, 512, PLACED_BLOCK):
+                addr = torch.from_numpy(rs.randint(0, half.shape[1], size=(
+                    rows, half.shape[0])).astype(np.int32)).to(dev)
+                got = lut_gather.lut_lookup_cuda(half, addr)
+                torch.cuda.synchronize()
+                err3 = max(err3, int((got - lut_gather.lut_lookup_plain(
+                    half, addr)).abs().max()))
+            shapes.append((half, addr))      # the last: PLACED_BLOCK rows
+    if err1 or err3:
+        fail(f"fleet shapes: kernels disagree with their plain versions: K1 "
+             f"{err1}, K3 {err3}")
+    b1 = PLACED_BLOCK // 2
+    codes = torch.from_numpy(rs.randint(0, span, size=(
+        b1, layers[0][0])).astype(np.int32)).to(dev)
+    byts, n_ops = cascade_work(layers, b1, tables.numel()
+                               * tables.element_size(), ops.map_words * 4)
+    rows = []
+    for name, path, task, b, kern, plain, lib, nbytes, per, sub, err in (
+            ("lut_cascade_resident", "fleet/nid batch x2",
+             "nid, a 512-row shard of a 1024-row block", b1,
+             lambda: lut_cascade.lut_cascade_resident(codes, ops),
+             lambda: lut_cascade.lut_cascade_plain(codes, tables, maps,
+                                                   layers),
+             None, byts, 1, "cascade_resident_kernel", err1),
+            ("lut_lookup", "fleet/nid units x2",
+             "nid, each slot's half of each layer's units at the padded "
+             "1024-row block, mean of a block's 10 launches", PLACED_BLOCK,
+             lambda: [lut_gather.lut_lookup_cuda(t, a) for t, a in shapes],
+             lambda: [lut_gather.lut_lookup_plain(t, a) for t, a in shapes],
+             lambda: [torch.gather(t, 1, a.t().long()).t()
+                      for t, a in shapes],
+             sum(a.numel() * 8 + t.numel() * 4 for t, a in shapes),
+             len(shapes), "lut_lookup_kernel", err3)):
+        ms = per_call_ms(kern) / per
+        plain_ms = per_call_ms(plain) / per
+        device_ms = traced_ms(kern, sub, 10, per)
+        device_ms = None if device_ms is None else device_ms / per
+        lib_ms = None if lib is None else per_call_ms(lib) / per
+        bound_ms, bound_by = bound(nbytes // per, n_ops if per == 1 else 0)
+        rows.append({"name": name, "path": path, "task": task, "batch": b,
+                     "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err})
+        print(f"time {name} ({task}, batch {b}, per launch): kernel "
+              f"{ms:.4f} ms (device {device_ms} ms), plain {plain_ms:.4f} "
+              f"ms, library {lib_ms} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by})" + (f", plan {k1_plan(ops, b)}" if per == 1
+                                 else "") + f" [{smi}]", flush=True)
+    rows[0]["plan"] = k1_plan(ops, b1)
+    return rows
+
+
+def fleet_phase(nets, dev, smi: str, seed: int, art_dir: Path,
+                trained: str, cell_path: str) -> dict:
+    """Slice 9's main path: the multi-tenant fleet at full width
+    (``nid``, ``jsc_openml`` and ``mnist`` from phase 4's random tables,
+    ``nid`` a second time on ``pallas``), registered from saved artifacts;
+    then a hot swap to the phase-6 ``mnist`` artifact under load,
+    placements over 2 slots, one scenario per fault class, and stream
+    failover of the phase-8 cell."""
+    from repro_torch.serve import (FaultInjector, FaultPlan, FaultSpec,
+                                   LUTFleet)
+
+    t0 = time.perf_counter()
+    paths = {}
+    for task in ("nid", "jsc_openml", "mnist"):
+        paths[task] = nets[task].save(str(art_dir / f"fleet_{task}.npz"))
+    paths["nid_k3"] = paths["nid"]
+    inj = FaultInjector(FaultPlan(
+        [FaultSpec("corrupt_artifact", at=1, scope="mnist")]))
+    fleet = LUTFleet(block=FLEET_BLOCK, depth=2, faults=inj, device=dev)
+    for mid, _, backend, _ in FLEET_TENANTS:
+        fleet.register(mid, paths[mid], backend=backend)
+    out = {"tenants": [{"model_id": m, "task": t, "backend": b, "kernel": k}
+                       for m, t, b, k in FLEET_TENANTS],
+           "block": FLEET_BLOCK, "depth": 2}
+    out["replay"] = fleet_replay(fleet, paths, dev, seed, smi)
+    out["idle"] = fleet_idle_share(fleet, smi)
+    out["hot_swap"] = fleet_hot_swap(fleet, inj, trained, seed)
+    out["degrades"] = {m: fleet.summary(m)["degrades"] for m in fleet.model_ids()}
+    if any(out["degrades"].values()):
+        fail(f"fleet: a lane degraded without an injected fault: "
+             f"{out['degrades']}")
+    out["placements"] = fleet_placements(paths, dev, seed, smi)
+    out["faults"] = fleet_faults(paths, dev, seed)
+    out["failover"] = fleet_failover(cell_path, dev, seed)
+    out["kernels"] = fleet_kernels(fleet.registry.get("nid").net, dev, seed,
+                                   smi)
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -1889,6 +2453,11 @@ def main(seed: int) -> dict:
     report["hw_surfaces"] = hw_surfaces(
         report["toolflow_mnist"]["artifact"], dev, smi)
 
+    # -- phase 9: the serving tier (slice 9) ----------------------------------
+    report["fleet"] = fleet_phase(nets, dev, smi, seed, art_dir,
+                                  report["toolflow_mnist"]["artifact"],
+                                  report["stream"]["artifact"])
+
     for k in kernels:
         if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
@@ -1936,6 +2505,15 @@ def main(seed: int) -> dict:
             replaces=REPLACES[k["name"]],
             launches=report["stream"]["serve"][backend]["launches"][
                 k["name"]]))
+    # the fleet's new call shapes: launches of the placed lanes' runs
+    placed = report["fleet"]["placements"]
+    for k in report["fleet"]["kernels"]:
+        run = placed["batch" if k["name"] == "lut_cascade_resident"
+                     else "units"]
+        kernels.append(dict(
+            k, route="cuda", source=SOURCES[k["name"]],
+            replaces=REPLACES[k["name"]],
+            launches=run["launches"][k["name"]]))
     report["kernels"] = kernels
     report["profiler_lead_lost"] = {str(n): LEAD_LOST.count(n)
                                     for n in sorted(set(LEAD_LOST))}
@@ -1955,6 +2533,26 @@ if __name__ == "__main__":
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "report.json").write_text(json.dumps(rep, indent=1))
+    fl = rep["fleet"]
+    print(json.dumps({"fleet": {
+        "tenants": {m: {key: t[key] for key in (
+            "task", "backend", "rows_per_s", "p50_request_us",
+            "p99_request_us")} for m, t in fl["replay"]["tenants"].items()},
+        "idle_share_10_ticks": fl["idle"]["device_idle_share"],
+        "launches": fl["replay"]["launches"],
+        "blocks": fl["replay"]["blocks"],
+        "placements": {
+            "slots": fl["placements"]["slots"],
+            "physical_devices": fl["placements"]["physical_devices"],
+            **{k: {key: fl["placements"][k][key] for key in (
+                "backend", "rows_per_s", "unplaced_rows_per_s",
+                "launches")} for k in ("batch", "units")}},
+        "degrades": {"uninjected": sum(fl["degrades"].values()),
+                     "injected": {n: f["degrades"]
+                                  for n, f in fl["faults"].items()}},
+        "swaps": fl["hot_swap"]["swap_history"],
+        "failover": {key: fl["failover"][key] for key in (
+            "streams", "steps", "mismatched_streams", "lost_steps")}}}))
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

@@ -7,6 +7,8 @@
 
 Built-ins: ``take`` / ``onehot`` / ``pallas`` (per layer; ``pallas`` is the
 hand-written lookup kernel) and ``fused`` (the whole cascade in one kernel).
+:class:`Placement` / :func:`place` run a plan split over a mesh of device
+slots (``placement.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import TYPE_CHECKING
 
 from repro_torch.backends.base import (BackendCapabilities, ExecutionPlan,
                                        LookupBackend)
+from repro_torch.backends.placement import Placement, place
 from repro_torch.backends.registry import (available, default_backend, get,
                                            register, resolve, unregister)
 
@@ -26,8 +29,9 @@ if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.folding import FoldedNetwork
 
 __all__ = [
-    "BackendCapabilities", "ExecutionPlan", "LookupBackend", "available",
-    "default_backend", "get", "register", "resolve", "unregister",
+    "BackendCapabilities", "ExecutionPlan", "LookupBackend", "Placement",
+    "available", "default_backend", "get", "place", "register", "resolve",
+    "unregister",
     "make_plan", "plan_for",
 ]
 

@@ -32,6 +32,10 @@ class BackendCapabilities:
     fused: bool
     needs_pallas: bool
     description: str = ""
+    # can the units axis be split over a mesh's slots (layer-by-layer
+    # execution, gathered at layer boundaries)?  Batch placement needs no
+    # capability: every backend's rows are independent (placement.py).
+    unit_shardable: bool = False
 
 
 @dataclasses.dataclass
@@ -64,6 +68,9 @@ class LookupBackend(abc.ABC):
     name: str = "?"
     plan_format: str = "v1"
     persist_plan: bool = True
+    # the units placement (placement.py) needs layer-by-layer execution;
+    # backends that have it override this and ``unit_sharded_runner``
+    supports_unit_sharding: bool = False
 
     @abc.abstractmethod
     def capabilities(self) -> BackendCapabilities:
@@ -83,6 +90,13 @@ class LookupBackend(abc.ABC):
         """Upgrade a persisted plan of an older ``plan_format``; ``None``
         (the default) forces a fresh plan."""
         return None
+
+    def unit_sharded_runner(self, plan: ExecutionPlan, mesh):
+        """Units-placed execution over the mesh's slots (placement.py):
+        ``run(codes) -> codes`` on the caller's device, or raises for
+        backends without per-layer boundaries."""
+        raise NotImplementedError(
+            f"{self.name}: unit-sharded execution not supported")
 
 
 def require_mappings(net: "FoldedNetwork", who: str) -> None:

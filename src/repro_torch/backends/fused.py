@@ -61,7 +61,8 @@ class FusedCascadeBackend(LookupBackend):
     plan_format = "fused-packed-v2"
 
     def capabilities(self) -> BackendCapabilities:
-        """Describe the fused backend."""
+        """Describe the fused backend (not unit-shardable: the cascade has
+        no layer boundary to gather at; placements split it by rows)."""
         return BackendCapabilities(
             name=self.name, fused=True, needs_pallas=True,
             description="whole-network cascade in one launch; bit-packed "

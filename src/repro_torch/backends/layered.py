@@ -22,6 +22,7 @@ class LayeredBackend(LookupBackend):
 
     plan_format = "layered-v1"
     persist_plan = False
+    supports_unit_sharding = True  # per-layer boundaries to gather at
 
     def __init__(self, impl: str):
         """``impl`` is the ``ops.lut_lookup`` name, also the registry name."""
@@ -37,7 +38,7 @@ class LayeredBackend(LookupBackend):
         }[self._impl]
         return BackendCapabilities(name=self.name, fused=False,
                                    needs_pallas=self._impl == "pallas",
-                                   description=desc)
+                                   description=desc, unit_shardable=True)
 
     def plan(self, net) -> ExecutionPlan:
         """Verbatim extraction of the per-layer tables + mappings."""
@@ -72,6 +73,50 @@ class LayeredBackend(LookupBackend):
             codes = ops.lut_lookup(plan.tensor(f"table_{l}", dev), addr,
                                    impl=plan.meta["impl"])
         return codes
+
+    def unit_sharded_runner(self, plan: ExecutionPlan, mesh):
+        """Units-placed cascade: each shard's slot holds its row slice of
+        every layer's table and mapping (copied there once, here) and
+        computes its slice of the layer's codes; the slices are
+        concatenated on the caller's device, the padded units sliced off,
+        and the full codes moved to every slot for the next layer."""
+        from repro_torch.backends.placement import unit_shard_buffers
+        from repro_torch.core import quant
+        from repro_torch.kernels import ops
+
+        layers = plan.meta["layers"]
+        impl = plan.meta["impl"]
+        slots = mesh.slots
+        n = len(slots)
+        bufs = unit_shard_buffers(
+            layers, lambda l: plan.buffers[f"table_{l}"],
+            lambda l: plan.buffers.get(f"mapping_{l}"), n)
+        shards = []
+        for i, s in enumerate(slots):
+            mine = []
+            for l in range(len(layers)):
+                table, mapping = bufs[2 * l], bufs[2 * l + 1]
+                r = table.shape[0] // n
+                mine.append((
+                    torch.tensor(table[i * r:(i + 1) * r], device=s.device),
+                    torch.tensor(mapping[i * r:(i + 1) * r],
+                                 dtype=torch.int64, device=s.device)))
+            shards.append((s.device, mine))
+
+        def run(codes: torch.Tensor) -> torch.Tensor:
+            home = codes.device
+            for l, lm in enumerate(layers):
+                parts = []
+                for dev, mine in shards:
+                    table, mapping = mine[l]
+                    ci = codes.to(dev, non_blocking=True)[:, mapping]
+                    addr = quant.pack_address(ci, lm["bits"], lm["fan_in"])
+                    parts.append(ops.lut_lookup(table, addr, impl=impl).to(
+                        home, non_blocking=True))
+                codes = torch.cat(parts, dim=1)[:, :lm["units"]]
+            return codes
+
+        return run
 
 
 register("take", lambda: LayeredBackend("take"))

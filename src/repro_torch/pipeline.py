@@ -125,18 +125,26 @@ class PlannedExecutor:
 
     Runs quantize -> ``backend.run`` -> dequantize on the network's device.
     Inputs may be numpy arrays or tensors; outputs are tensors on the
-    network's device.
+    network's device.  With a :class:`~repro_torch.backends.Placement` the
+    cascade runs split over the placement's slots (batch or units); the
+    codes equal the unplaced run's and still come back on the network's
+    device.
     """
 
     def __init__(self, net: "CompiledLUTNetwork",
                  backend: backends.LookupBackend,
-                 plan: backends.ExecutionPlan):
+                 plan: backends.ExecutionPlan,
+                 placement: Optional[backends.Placement] = None):
         """Bind ``backend`` and its ``plan`` to ``net``'s quantizers."""
         self.backend = backend.name
         self.plan = plan
+        self.placement = placement
         self.capabilities = backend.capabilities()
         self.device = net.device
-        self._run = backend.run
+        if placement is None:
+            self._cascade = lambda codes: backend.run(plan, codes)
+        else:
+            self._cascade = backends.place(backend, plan, placement)
         cfg = net.cfg
         self._in_q = {"log_scale": net.in_log_scale}
         self._out_q = {"log_scale": net.out_log_scale}
@@ -150,7 +158,7 @@ class PlannedExecutor:
         """Final codes ``[B, n_out]`` int32 and logits ``[B, n_out]`` f32."""
         codes = quant.quantize_codes(self._in_q, self._in_spec,
                                      self._prepare(x))
-        codes = self._run(self.plan, codes)
+        codes = self._cascade(codes)
         return codes, quant.dequantize_codes(self._out_q, self._out_spec,
                                              codes)
 
@@ -158,7 +166,7 @@ class PlannedExecutor:
         """``[batch, in_features]`` floats -> final-layer codes."""
         codes = quant.quantize_codes(self._in_q, self._in_spec,
                                      self._prepare(x))
-        return self._run(self.plan, codes)
+        return self._cascade(codes)
 
     def predict(self, x) -> torch.Tensor:
         """``[batch, in_features]`` floats -> dequantized logits."""
@@ -191,7 +199,8 @@ class CompiledLUTNetwork:
         self.extra_meta: Dict[str, Any] = {}
         self._folded: Optional[FoldedNetwork] = None
         self._plans: Dict[str, backends.ExecutionPlan] = {}
-        self._executors: Dict[str, PlannedExecutor] = {}
+        # keyed by (backend name, placement cache_key or None)
+        self._executors: Dict[tuple, PlannedExecutor] = {}
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -232,20 +241,33 @@ class CompiledLUTNetwork:
                           for m in self.mappings])
         return self._folded
 
-    def compile_backend(self, name: Optional[str] = None) -> PlannedExecutor:
+    def compile_backend(self, name: Optional[str] = None, *, mesh=None,
+                        placement: Optional[backends.Placement] = None,
+                        ) -> PlannedExecutor:
         """Plan the named backend (default ``self.backend``) once and return
         its executor.  A restored plan of another ``plan_format`` is offered
-        to the backend's ``migrate_plan`` first, then re-planned."""
+        to the backend's ``migrate_plan`` first, then re-planned.
+
+        ``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`) is sugar
+        for ``placement=Placement(mesh)`` (batch-split over the mesh's
+        slots).  Planning does not depend on the placement; executors are
+        cached per (backend, placement)."""
+        if mesh is not None:
+            if placement is not None:
+                raise ValueError("pass either mesh= or placement=, not both")
+            placement = backends.Placement(mesh)
         be = backends.resolve(name or self.backend)
-        if be.name not in self._executors:
+        key = (be.name, None if placement is None else placement.cache_key())
+        if key not in self._executors:
             plan = self._plans.get(be.name)
             if plan is None or plan.meta.get("plan_format") != be.plan_format:
                 migrated = None if plan is None else be.migrate_plan(
                     plan, self.folded())
                 plan = self._plans[be.name] = migrated or backends.make_plan(
                     self.folded(), be)
-            self._executors[be.name] = PlannedExecutor(self, be, plan)
-        return self._executors[be.name]
+            self._executors[key] = PlannedExecutor(self, be, plan,
+                                                   placement=placement)
+        return self._executors[key]
 
     def predict_codes(self, x, *, backend: Optional[str] = None
                       ) -> torch.Tensor:

@@ -10,7 +10,10 @@ On a CUDA network a dispatch fills a pinned host buffer, copies it to the
 card without blocking, launches the cascade on the current stream, copies
 codes and logits back into pinned host buffers with ``non_blocking=True``
 and records a ``torch.cuda.Event``; retiring a block synchronizes that
-event.  On the CPU the engine is synchronous.
+event.  A block's pinned slot is reused only after the block is retired
+or abandoned: the pool starts at ``depth`` slots and grows when a caller
+holds more of the engine's blocks in flight (the fleet, whose in-flight
+budget is global).  On the CPU the engine is synchronous.
 
 **Cell mode** (``cell=``, a :class:`~repro_torch.stream.cell.CompiledStreamCell`):
 the block function is the folded recurrent step.  Each request carries its
@@ -18,6 +21,16 @@ state codes in (``submit(state=)``) and gets its next-state codes back
 (``next_state``); the pinned slots hold a state-in and a next-state-out
 column beside the rows, and a request's next state is read from its slot
 only after the block's event has completed.
+
+**Placement** (``placement=`` or ``mesh=``): the executor (or the cell's
+step) runs split over the placement's device slots
+(:mod:`repro_torch.backends.placement`) and returns its codes on the
+network's device, so the pinned slots are unchanged.  **Faults**
+(``faults=``, a :class:`~repro_torch.serve.faults.FaultInjector`): every
+dispatch crosses the injector's ``executor_call`` seam under ``scope``
+(the tenant's id under a fleet), and block ages read the injector's clock.
+The fleet (:mod:`repro_torch.serve.fleet`) hands the engine a pre-built
+executor (``executor=``) from its registry's cache.
 """
 from __future__ import annotations
 
@@ -31,18 +44,10 @@ import torch
 
 from repro_torch import backends
 from repro_torch.pipeline import CompiledLUTNetwork
+from repro_torch.serve.faults import DrainTimeout
 
-
-class DrainTimeout(RuntimeError):
-    """A drain wait exceeded its timeout; names the stuck block."""
-
-    def __init__(self, message: str, *, scope: Optional[str] = None,
-                 requests: int = 0, age_s: float = 0.0):
-        """Record the scope, the stuck block's size and its age."""
-        super().__init__(message)
-        self.scope = scope
-        self.requests = int(requests)
-        self.age_s = float(age_s)
+__all__ = ["DrainTimeout", "LATENCY_WINDOW", "LUTEngine", "LUTEngineStats",
+           "LUTRequest"]
 
 
 @dataclasses.dataclass
@@ -55,8 +60,8 @@ class LUTRequest:
     logits: Optional[np.ndarray] = None
     done: bool = False
     attempts: int = 0
-    # wall-clock admission time, stamped by the stream router for its step
-    # latency; 0.0 = unstamped
+    # wall-clock submission time, stamped by callers that track end-to-end
+    # request latency (the fleet, the stream router); 0.0 = unstamped
     t_submit: float = 0.0
     # cell mode: the state codes this step consumes, the next-state codes
     # it produced, and the stream the step belongs to
@@ -98,7 +103,8 @@ class LUTEngineStats:
 
 class _Slot:
     """Pinned host staging for one in-flight block on a CUDA network (with
-    a state-in and a next-state-out column in cell mode, ``n_state > 0``)."""
+    a state-in and a next-state-out column in cell mode, ``n_state > 0``).
+    ``busy`` from the block's dispatch until it is retired or abandoned."""
 
     def __init__(self, block: int, in_features: int, n_out: int,
                  n_state: int = 0):
@@ -116,6 +122,7 @@ class _Slot:
             self.next_state = torch.empty((block, n_state),
                                           dtype=torch.int32, **pinned)
         self.done: Optional[torch.cuda.Event] = None
+        self.busy = False
 
     def wait(self) -> None:
         """Block until the last block staged here has been copied back."""
@@ -129,25 +136,29 @@ class LUTEngine:
 
     def __init__(self, net: CompiledLUTNetwork, *, block: int = 256,
                  backend: Optional[str] = None, depth: int = 1,
-                 cell=None, mesh=None, placement=None):
+                 cell=None, mesh=None, placement=None, executor=None,
+                 faults=None, scope: Optional[str] = None):
         """Plan ``backend`` (default: the network's) for blocks of
-        ``block`` rows with up to ``depth`` blocks in flight.  ``cell`` is a
+        ``block`` rows with up to ``depth`` blocks in flight, placed by
+        ``placement`` (or ``mesh``, batch-split).  ``cell`` is a
         :class:`~repro_torch.stream.cell.CompiledStreamCell` wrapping
-        ``net`` (cell mode).  Meshes and placements are not ported yet and
-        raise."""
+        ``net`` (cell mode); ``executor`` a pre-built
+        :class:`~repro_torch.pipeline.PlannedExecutor` of ``net``;
+        ``faults`` and ``scope`` the fault seam."""
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
-        if mesh is not None or placement is not None:
-            raise NotImplementedError(
-                "LUTEngine over a device mesh or placement is not ported yet "
-                "(ROADMAP A.11)")
+        if mesh is not None and placement is not None:
+            raise ValueError("pass either mesh= or placement=, not both")
         self.net = net
         self._block = int(block)
         self._depth = int(depth)
         self.queue: Deque[LUTRequest] = collections.deque()
         self.stats = LUTEngineStats()
         self._next_rid = 0
-        self._now = time.perf_counter
+        self._faults = faults
+        self._scope = scope
+        self._now = faults.clock.now if faults is not None \
+            else time.perf_counter
         # (requests, codes, logits, next state, t_dispatch, slot), oldest
         # first; on the card the arrays are None and come from the slot
         self._inflight: Deque[Tuple] = collections.deque()
@@ -155,24 +166,42 @@ class LUTEngine:
         self._n_state = 0
         if cell is not None:
             # cell mode: the block function is the folded recurrent step
+            if executor is not None:
+                raise ValueError("pass either cell= or executor=")
             if net is not cell.net:
                 raise ValueError("cell= must wrap the engine's net")
+            if mesh is not None:
+                placement = backends.Placement(mesh)
             self._in_features = cell.cell.n_in
             self._n_state = cell.cell.n_state
             self._zero_state = cell.cell.zero_state_code()
-            step = cell.raw_step(backend)
+            self._fwd = cell.raw_step(backend, placement)
             self._backend = backends.resolve(backend or net.backend).name
-            self._fwd = step
+            self._fault_placement = placement
             n_out = cell.cell.n_out
         else:
+            if executor is not None:
+                if backend is not None and backend != executor.backend:
+                    raise ValueError(
+                        f"executor runs backend {executor.backend!r}, "
+                        f"not {backend!r}")
+                if mesh is not None or placement is not None:
+                    raise ValueError("pass mesh= at executor build time, "
+                                     "not alongside executor=")
+            else:
+                executor = net.compile_backend(backend or net.backend,
+                                               mesh=mesh, placement=placement)
             self._in_features = net.cfg.in_features
-            executor = net.compile_backend(backend or net.backend)
             self._backend = executor.backend
             self._fwd = executor.codes_and_logits
+            self._fault_placement = executor.placement
             n_out = net.cfg.layers[-1].units
         self._cuda = net.device.type == "cuda"
+        self._n_out = n_out
+        # pinned staging, one slot per block in flight: ``depth`` to start,
+        # more when a caller (the fleet, with its global in-flight budget)
+        # holds more of this engine's blocks in flight than ``depth``
         self._slots: List[_Slot] = []
-        self._next_slot = 0
         if self._cuda:
             self._slots = [_Slot(self._block, self._in_features, n_out,
                                  self._n_state)
@@ -231,11 +260,13 @@ class LUTEngine:
         self.stats.requests += 1
         return req
 
-    def submit_many(self, xs: np.ndarray, *,
-                    states: Optional[np.ndarray] = None) -> List[LUTRequest]:
-        """Enqueue every row of ``xs`` with one dtype conversion.  In cell
-        mode ``states`` (``[n, n_state]`` codes, default the initial state)
-        ride along."""
+    def submit_many(self, xs: np.ndarray, t_submit: float = 0.0, *,
+                    states: Optional[np.ndarray] = None,
+                    stream_ids=None) -> List[LUTRequest]:
+        """Enqueue every row of ``xs`` with one dtype conversion, each
+        handle stamped with ``t_submit`` (the fleet's request-latency
+        clock).  In cell mode ``states`` (``[n, n_state]`` codes, default
+        the initial state) and ``stream_ids`` ride along."""
         xs = np.asarray(xs, np.float32)
         base = self._next_rid
         if self._cell is not None:
@@ -244,10 +275,13 @@ class LUTEngine:
                                  np.int32)
             else:
                 states = np.asarray(states, np.int32)
-            reqs = [LUTRequest(rid=base + i, x=row, state=s)
+            reqs = [LUTRequest(rid=base + i, x=row, t_submit=t_submit,
+                               state=s,
+                               stream_id=(None if stream_ids is None
+                                          else stream_ids[i]))
                     for i, (row, s) in enumerate(zip(xs, states))]
         else:
-            reqs = [LUTRequest(rid=base + i, x=row)
+            reqs = [LUTRequest(rid=base + i, x=row, t_submit=t_submit)
                     for i, row in enumerate(xs)]
         self._next_rid += len(reqs)
         self.queue.extend(reqs)
@@ -276,9 +310,12 @@ class LUTEngine:
             codes, logits, s_next = self._fwd(torch.from_numpy(xb),
                                               torch.from_numpy(sb))
             return codes.numpy(), logits.numpy(), s_next.numpy(), None
-        slot = self._slots[self._next_slot]
-        self._next_slot = (self._next_slot + 1) % len(self._slots)
-        slot.wait()
+        slot = next((sl for sl in self._slots if not sl.busy), None)
+        if slot is None:
+            slot = _Slot(self._block, self._in_features, self._n_out,
+                         self._n_state)
+            self._slots.append(slot)
+        slot.wait()             # an abandoned block's copies may be pending
         xb = slot.x.numpy()
         xb[:n] = [req.x for req in batch]
         xb[n:] = 0.0
@@ -299,28 +336,39 @@ class LUTEngine:
     def dispatch_block(self) -> List[LUTRequest]:
         """Pad up to ``block`` queued requests and launch the cascade
         without waiting for the result; returns the dispatched requests.
-        If the launch raises, the requests go back to the front of the
-        queue in order before the exception propagates."""
+        If the launch (or an injected fault) raises, the requests go back
+        to the front of the queue in order, attempts bumped, before the
+        exception propagates."""
         batch: List[LUTRequest] = []
         while self.queue and len(batch) < self._block:
             batch.append(self.queue.popleft())
         if not batch:
             return batch
+        # stamp before the fault seam: an injected hang skews the clock
+        # during dispatch, so the block is already that old when the
+        # fleet's supervision first looks at it
         t0 = self._now()
         try:
+            if self._faults is not None:
+                self._faults.executor_call(scope=self._scope,
+                                           placement=self._fault_placement)
             codes, logits, s_next, slot = self._launch(batch)
         except BaseException:
             for req in batch:
                 req.attempts += 1
             self.queue.extendleft(reversed(batch))
             raise
+        if slot is not None:
+            slot.busy = True
         self._inflight.append((batch, codes, logits, s_next, t0, slot))
         self.stats.rows_padded += self._block - len(batch)
         self.stats.ticks += 1
         return batch
 
     def oldest_age(self) -> float:
-        """Seconds since the oldest in-flight block was dispatched."""
+        """Seconds since the oldest in-flight block was dispatched, on the
+        fault injector's clock when one is configured (what deadline
+        supervision reads)."""
         if not self._inflight:
             return 0.0
         return self._now() - self._inflight[0][4]
@@ -330,7 +378,9 @@ class LUTEngine:
         its requests at the front (attempts incremented) and return them."""
         if not self._inflight:
             return []
-        batch = self._inflight.popleft()[0]
+        batch, *_, slot = self._inflight.popleft()
+        if slot is not None:
+            slot.busy = False   # reused only after its copies complete
         for req in batch:
             req.attempts += 1
         self.queue.extendleft(reversed(batch))
@@ -351,6 +401,7 @@ class LUTEngine:
             logits = slot.logits[:n].numpy().copy()
             if slot.next_state is not None:
                 s_next = slot.next_state[:n].numpy().copy()
+            slot.busy = False
         for req, c, lg in zip(batch, list(codes), list(logits)):
             req.codes = c
             req.logits = lg
@@ -383,12 +434,14 @@ class LUTEngine:
                 age = self.oldest_age()
                 if age > timeout:
                     batch = self._inflight[0][0]
+                    scope = self._scope if self._scope is not None \
+                        else "engine"
                     raise DrainTimeout(
                         f"drain timed out: oldest in-flight block on "
-                        f"'engine' ({len(batch)} requests, backend "
+                        f"{scope!r} ({len(batch)} requests, backend "
                         f"{self._backend!r}) is {age:.3f}s old "
                         f"(timeout {timeout:.3f}s)",
-                        scope=None, requests=len(batch), age_s=age)
+                        scope=self._scope, requests=len(batch), age_s=age)
             completed += len(self.retire_oldest())
         return completed
 

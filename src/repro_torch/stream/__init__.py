@@ -7,9 +7,8 @@ port of ``repro.stream``).
   * :mod:`repro_torch.stream.session`: per-stream state (packed codes by
     stream id) and the continuous-batching stream router over a cell-mode
     :class:`~repro_torch.serve.lut_engine.LUTEngine`.
-
-Replication and failover (``repro.stream.replica``) are not ported yet
-(ROADMAP A.12).
+  * :mod:`repro_torch.stream.replica`: code-space checkpoint replication
+    to a standby and bit-identical stream failover.
 """
 from repro_torch.stream.cell import (  # noqa: F401
     CompiledStreamCell,
@@ -20,6 +19,13 @@ from repro_torch.stream.cell import (  # noqa: F401
     compile_cell,
     migrate_state_codes,
     state_migration_mode,
+)
+from repro_torch.stream.replica import (  # noqa: F401
+    ReplicatedStreamTenant,
+    ReplicationLog,
+    StandbyReplica,
+    StreamCheckpoint,
+    checkpoint_streams,
 )
 from repro_torch.stream.session import (  # noqa: F401
     StreamRouter,

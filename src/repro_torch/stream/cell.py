@@ -22,8 +22,9 @@ to the quantized training forward, step for step, on every backend.
 n_state)`` split.  Its transition runs in code space, and
 :meth:`CompiledStreamCell.predict_sequence` loops over the same step
 function that :meth:`CompiledStreamCell.step` calls, so streamed and offline
-codes agree by construction.  Placements over several devices are not
-ported yet (ROADMAP A.11) and raise.
+codes agree by construction.  A step may run under a
+:class:`~repro_torch.backends.Placement` (split over a mesh of device
+slots), with the same codes.
 """
 from __future__ import annotations
 
@@ -79,12 +80,6 @@ class StreamCellConfig:
         """The in-boundary code of state value 0 (the initial state)."""
         s = self.in_spec()
         return int(np.clip(0, s.qmin, s.qmax) - s.qmin)
-
-
-def _no_placement(placement) -> None:
-    if placement is not None:
-        raise NotImplementedError(
-            "placements over a device mesh are not ported yet (ROADMAP A.11)")
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +175,8 @@ class CompiledStreamCell:
         self.net = net
         self.cell = StreamCellConfig(net=net.cfg, n_in=n_in, n_state=n_state)
         net.extra_meta["stream_cell"] = {"n_in": n_in, "n_state": n_state}
-        self._raw: Dict[str, StepFn] = {}   # backend name -> step function
+        # (backend name, placement cache key) -> step function
+        self._raw: Dict[tuple, StepFn] = {}
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -215,16 +211,25 @@ class CompiledStreamCell:
                           device=self.net.device)
 
     # -- the folded transition ----------------------------------------------
+    def _key(self, backend, placement):
+        be = backends.resolve(backend or self.net.backend)
+        return ((be.name,
+                 None if placement is None else placement.cache_key()), be)
+
     def raw_step(self, backend: Optional[str] = None,
                  placement=None) -> StepFn:
         """The step function ``(x [B, n_in] f32, s_codes [B, n_state]) ->
         (y_codes, y_logits, s_next_codes)`` of ``backend`` (default: the
-        network's), on the network's device."""
-        _no_placement(placement)
-        be = backends.resolve(backend or self.net.backend)
-        if be.name in self._raw:
-            return self._raw[be.name]
-        plan = self.net.compile_backend(be.name).plan
+        network's) under ``placement``, on the network's device."""
+        key, be = self._key(backend, placement)
+        if key in self._raw:
+            return self._raw[key]
+        # compile_backend owns planning and plan staleness; reuse its plan
+        plan = self.net.compile_backend(be.name, placement=placement).plan
+        if placement is None:
+            cascade = lambda codes: be.run(plan, codes)  # noqa: E731
+        else:
+            cascade = backends.place(be, plan, placement)
         dev = self.net.device
         in_q = {"log_scale": self.net.in_log_scale}
         out_q = {"log_scale": self.net.out_log_scale}
@@ -235,13 +240,13 @@ class CompiledStreamCell:
             x = torch.as_tensor(x, dtype=torch.float32).to(dev)
             s_codes = torch.as_tensor(s_codes).to(dev, torch.int32)
             x_codes = quant.quantize_codes(in_q, in_spec, x)
-            out = be.run(plan, torch.cat([x_codes, s_codes], dim=-1))
+            out = cascade(torch.cat([x_codes, s_codes], dim=-1))
             s_next = quant.recode(out_q, out_spec, in_q, in_spec,
                                   out[:, n_out:])
             y = quant.dequantize_codes(out_q, out_spec, out[:, :n_out])
             return out[:, :n_out], y, s_next
 
-        self._raw[be.name] = step
+        self._raw[key] = step
         return step
 
     def step(self, x, s_codes, *, backend: Optional[str] = None,

@@ -16,19 +16,24 @@ many streams:
     the next-state codes are written back and the stream's next queued step
     becomes admissible.
 
-The fleet's stream lane (ROADMAP A.11) is not ported yet.
+The fleet's stream lane (:meth:`repro_torch.serve.fleet.LUTFleet.open_stream`)
+serves streams beside stateless tenants on the same machinery.
 """
 from __future__ import annotations
 
 import collections
 import time
-from typing import Deque, Dict, List, Optional
+from typing import TYPE_CHECKING, Deque, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.serve.lut_engine import LATENCY_WINDOW, LUTEngine
 from repro_torch.stream import cell as cell_mod
 from repro_torch.stream.cell import CompiledStreamCell
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    # the serving package imports this module (the fleet's stream lane),
+    # so the engine is imported where the router builds one
+    from repro_torch.serve.lut_engine import LUTEngine
 
 
 def state_dtype(levels: int):
@@ -154,15 +159,13 @@ class StreamRouter:
                  backend: Optional[str] = None, mesh=None, placement=None,
                  depth: int = 1, engine: Optional[LUTEngine] = None):
         """Serve ``cell`` on ``engine`` or on a new cell-mode engine of
-        ``block`` rows, ``backend`` and ``depth``.  Meshes and placements
-        are not ported yet and raise."""
-        if mesh is not None or placement is not None:
-            raise NotImplementedError(
-                "stream serving over a device mesh or placement is not "
-                "ported yet (ROADMAP A.11)")
+        ``block`` rows, ``backend``, ``depth`` and placement (``mesh`` or
+        ``placement``)."""
+        from repro_torch.serve.lut_engine import LATENCY_WINDOW, LUTEngine
         self.cell = cell
         self.engine = engine if engine is not None else LUTEngine(
-            cell.net, cell=cell, block=block, backend=backend, depth=depth)
+            cell.net, cell=cell, block=block, backend=backend, depth=depth,
+            mesh=mesh, placement=placement)
         if self.engine.cell is not cell:
             raise ValueError("engine was built for a different cell")
         self.store = StreamStore(cell)

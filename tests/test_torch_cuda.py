@@ -750,3 +750,123 @@ def test_stream_toolflow_on_card_round_trips_its_state(cuda, tmp_path):
         np.testing.assert_array_equal(
             back.compile().predict_sequence(xs[:16])[0].cpu().numpy(),
             comp.predict_sequence(xs[:16])[0].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the serving tier's call shapes: batch shards and unit slices
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 7, 32, 512])
+def test_resident_kernel_at_shard_batches(rows, cuda):
+    """K1 on ``nid`` at a batch shard: the first and the second shard of a
+    block split in two (the second starts ``rows`` rows in, so its codes
+    are not 16-byte aligned at every ``rows``), each against the twin."""
+    layers, tables, maps, ops = _resident_ops("nid", cuda, seed=11)
+    rs = np.random.RandomState(rows)
+    block = torch.from_numpy(rs.randint(
+        0, 2 ** layers[0][5], (2 * rows, layers[0][0])).astype(np.int32)
+    ).to(cuda)
+    for shard in (block[:rows], block[rows:]):
+        got = lut_cascade.lut_cascade_resident(shard, ops)
+        torch.cuda.synchronize()
+        assert torch.equal(got, lut_cascade.lut_cascade_plain(
+            shard, tables, maps, layers))
+
+
+@pytest.mark.parametrize("rows", [5, 16])
+def test_streamed_kernel_below_a_tile(rows, cuda):
+    """K2 on ``mnist`` at shards smaller than (5) and equal to (16) one
+    cluster tile, on the plan the fused backend runs."""
+    cfg = paper_tasks.task_config("mnist")
+    plan = pipeline.CompiledLUTNetwork(
+        cfg, *_arrays(cfg, 12), device=cuda).compile_backend("fused").plan
+    layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
+    tables = plan.tensor("tables", cuda)
+    maps = [plan.tensor(f"map_{l}", cuda) if f"map_{l}" in plan.buffers
+            else None for l in range(len(layers))]
+    ops = lut_cascade.prepare(tables, layers, maps)
+    codes = torch.from_numpy(np.random.RandomState(rows).randint(
+        0, 2 ** layers[0][5], (rows, layers[0][0])).astype(np.int32)).to(cuda)
+    got = lut_cascade.lut_cascade_streamed(
+        codes, ops, unit_tile=plan.meta["tuning"]["unit_tile"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, lut_cascade.lut_cascade_plain(codes, tables,
+                                                          maps, layers))
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+def test_lookup_kernel_on_unit_slices(slots, cuda):
+    """K3 on every slot's slice of each ``nid`` layer (``unit_shard_buffers``:
+    ceil(units / slots) rows, zero-padded), against the twin, up to the
+    units lane's padded block of 1024 rows."""
+    from repro_torch.backends.placement import unit_shard_buffers
+    cfg = paper_tasks.task_config("nid")
+    plan = pipeline.CompiledLUTNetwork(
+        cfg, *_arrays(cfg, 13), device=cuda).compile_backend("pallas").plan
+    bufs = unit_shard_buffers(
+        plan.meta["layers"], lambda l: plan.buffers[f"table_{l}"],
+        lambda l: plan.buffers.get(f"mapping_{l}"), slots)
+    rs = np.random.RandomState(slots)
+    for l in range(len(cfg.layers)):
+        full = bufs[2 * l]
+        r = full.shape[0] // slots
+        for i in range(slots):
+            table = torch.tensor(full[i * r:(i + 1) * r], device=cuda)
+            for b in (1, 77, 257, 512, 1024):
+                addr = torch.from_numpy(rs.randint(
+                    0, table.shape[1], (b, r)).astype(np.int32)).to(cuda)
+                got = lut_gather.lut_lookup_cuda(table, addr)
+                torch.cuda.synchronize()
+                assert torch.equal(got, lut_gather.lut_lookup_plain(table,
+                                                                    addr))
+
+
+@pytest.mark.parametrize("backend,strategy", [("fused", "batch"),
+                                              ("pallas", "batch"),
+                                              ("pallas", "units")])
+def test_two_slot_placement_on_card_equals_unplaced(backend, strategy, cuda):
+    """2 slots on ``cuda:0``: a placed engine's codes equal the unplaced
+    run's, with one kernel launch a slot (K1) or a layer a slot (K3)."""
+    from repro_torch import backends
+    from repro_torch.launch.mesh import make_serving_mesh
+    cfg = paper_tasks.task_config("nid")
+    net = pipeline.CompiledLUTNetwork(cfg, *_arrays(cfg, 14), device=cuda)
+    pl = backends.Placement(make_serving_mesh(slots=2, device=cuda),
+                            strategy=strategy)
+    x = _x(cfg, 1024 + 77, seed=15)
+    want = net.predict_codes(x, backend=backend)
+    ex = net.compile_backend(backend, placement=pl)
+    ex.predict_codes(x[:4])
+    build.reset_counters()
+    got = ex.predict_codes(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    kname = "lut_cascade_resident" if backend == "fused" else "lut_lookup"
+    per = 1 if backend == "fused" else len(cfg.layers)
+    assert build.launch_counts()[kname] == 2 * per
+    eng = LUTEngine(net, block=512, depth=2, backend=backend, placement=pl)
+    np.testing.assert_array_equal(eng.run(x), net.predict(
+        x, backend=backend).cpu().numpy())
+
+
+def test_engine_holds_more_blocks_in_flight_than_its_depth(cuda):
+    """The fleet drives a depth-1 engine with a global in-flight budget, so
+    an engine may hold several blocks in flight: each keeps its own pinned
+    slot until retired (a shared slot handed the first block the second
+    one's codes), and an abandoned block's slot is reused safely."""
+    cfg = paper_tasks.task_config("nid")
+    net = pipeline.CompiledLUTNetwork(cfg, *_arrays(cfg, 16), device=cuda)
+    x = _x(cfg, 5 * 64, seed=17)
+    want = net.predict_codes(x, backend="fused").cpu().numpy()
+    for backend in ("fused", "take"):
+        eng = LUTEngine(net, block=64, depth=1, backend=backend)
+        reqs = eng.submit_many(x)
+        for _ in range(3):
+            eng.dispatch_block()                 # 3 blocks, 1-slot depth
+        abandoned = eng.abandon_oldest()
+        assert len(abandoned) == 64 and eng.inflight == 2
+        while eng.queue:
+            eng.dispatch_block()
+        eng.drain()
+        np.testing.assert_array_equal(
+            np.stack([r.codes for r in reqs]), want, err_msg=backend)

@@ -595,16 +595,31 @@ def test_engine_cell_mode_validation_and_submit_many(tiny):
 
 
 def test_meshes_placements_and_the_fleet_lane_raise(tiny):
+    """Placements were refused until the serving tier was ported; now a
+    step, a router and a cell-mode engine under a placement give the
+    unplaced codes, and ``repro_torch.stream`` exports ``replica``."""
+    from repro_torch.launch.mesh import make_serving_mesh
     jc, tc, jp, tp, jcomp, tcomp = tiny
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tcomp.step(np.zeros((1, 4), np.float32), tcomp.init_state_codes(1),
-                   placement=object())
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tsession.StreamRouter(tcomp, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.11"):
-        LUTEngine(tcomp.net, cell=tcomp, placement=object())
+    mesh = make_serving_mesh(slots=2, device="cpu")
+    xs = _seqs(3, 4, 4, seed=13)
+    want = tcomp.predict_sequence(xs, backend="take")[0]
+    for pl in (tbackends.Placement(mesh),
+               tbackends.Placement(mesh, strategy="units")):
+        assert torch.equal(tcomp.predict_sequence(
+            xs, backend="pallas", placement=pl)[0], want)
+        eng = LUTEngine(tcomp.net, cell=tcomp, block=4, placement=pl)
+        router = tsession.StreamRouter(tcomp, engine=eng)
+        sessions = router.run_sequences({i: xs[i] for i in range(3)})
+        for i, sess in sessions.items():
+            np.testing.assert_array_equal(sess.codes(), want[i].numpy())
+    router = tsession.StreamRouter(tcomp, mesh=mesh, block=4)
+    assert router.engine.backend == tcomp.net.backend
+    with pytest.raises(ValueError, match="unit sharding"):
+        tcomp.step(xs[:, 0], tcomp.init_state_codes(3), backend="fused",
+                   placement=tbackends.Placement(mesh, strategy="units"))
     import repro_torch.stream as tstream
-    assert not hasattr(tstream, "replica")
+    assert hasattr(tstream, "replica")
+    assert tstream.StandbyReplica is tstream.replica.StandbyReplica
 
 
 # ---------------------------------------------------------------------------
