@@ -40,14 +40,23 @@ shapes, and drives both main paths:
   card-trained ``mnist`` artifact under load and a corrupted candidate
   rolled back; ``nid`` batch-split (K1) and units-split (K3) over 2 device
   slots; one fault scenario per class through ``FaultInjector``; stream
-  failover of the phase-8 cell through ``ReplicatedStreamTenant``.
+  failover of the phase-8 cell through ``ReplicatedStreamTenant``;
+* the assembly search (slice 10): K4's per-unit route at a stacked
+  population of ``mnist`` candidates (one launch a stage for the whole
+  group), one population step on the card against the CPU, the idle
+  share of a rung's steps, ``Toolflow.search("nid")`` on the default
+  budget with every frontier artifact served on ``take``, ``fused`` (K1)
+  and ``pallas`` (K3) against a CPU load, and ``nid_reduced``'s rungs over
+  2 device slots against the sequential run, with a straggling and a lost
+  slot.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
 is timed.  Any failed phase exits nonzero.  The last three lines of
 standard output are a JSON object with every kernel's launches, error and
 times, the card's ``name, power.limit``, then ``{"ok": true, "device":
-{...}}``; a ``{"fleet": ...}`` line comes before them.  A full report goes
+{...}}``; a ``{"fleet": ...}`` and a ``{"search": ...}`` line come
+before them.  A full report goes
 to ``build/chip_smoke/report.json``.
 Imports nothing of JAX.
 """
@@ -2087,6 +2096,602 @@ def fleet_phase(nets, dev, smi: str, seed: int, art_dir: Path,
     return out
 
 
+SEARCH_ROWS = 4096           # rows each frontier artifact serves a backend
+SEARCH_BLOCK = 1024          # the engine's block serving them
+POP_BATCH = 256              # the search's batch (SearchBudget.batch_size)
+POP_CPU_BATCH = 64           # the card-vs-CPU population step's batch
+# the nid search's best frontier accuracy must pass this (the classes are
+# balanced, so chance is about 0.5; the card's runs gave 0.7686)
+SEARCH_NID_ACCURACY = 0.70
+
+
+def _stages(cfg) -> int:
+    """K4 calls of one forward of ``cfg``: each layer's affine stages and
+    bypasses."""
+    n = 0
+    for l in range(len(cfg.layers)):
+        spec = cfg.subnet_spec(l)
+        n += spec.n_affine + len(spec.skip_edges())
+    return n
+
+
+def _largest_signature_group(task: str, budget):
+    """The candidates of the largest shape-signature group of
+    ``generate_candidates(task_config(task), budget)``, first of the
+    largest on a tie."""
+    from repro_torch.configs import paper_tasks
+    from repro_torch.search import generate_candidates, shape_signature
+    cands, _ = generate_candidates(paper_tasks.task_config(task), budget)
+    groups: dict = {}
+    for c in cands:
+        groups.setdefault(shape_signature(c.cfg), []).append(c)
+    return max(groups.values(), key=len)
+
+
+def hold_k4_affine(x, w, bias, act: bool, label: str) -> float:
+    """K4's route on these operands against its plain version (f32 rtol =
+    atol = 1e-5 x sqrt(din/64) where din > 64, as ``check_unit_affine``)
+    and against the reference kernel bit for bit in f32 and bf16; returns
+    the max |diff| against the plain version."""
+    import math
+    import torch
+    from repro_torch.kernels import subnet_mlp
+
+    got = subnet_mlp.unit_affine_cuda(x, w, bias, activate=act)
+    want = subnet_mlp.unit_affine_plain(x, w, bias, activate=act)
+    tol = 1e-5 * max(1.0, math.sqrt(x.shape[-1] / 64))
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        fail(f"K4 {label}: max |diff| {err}")
+    for dt in (torch.float32, torch.bfloat16):
+        xd, wd = x.to(dt), w.to(dt)
+        bd = None if bias is None else bias.to(dt)
+        if not torch.equal(
+                subnet_mlp.unit_affine_cuda(xd, wd, bd, activate=act),
+                subnet_mlp.unit_affine_reference_cuda(xd, wd, bd,
+                                                      activate=act)):
+            fail(f"K4 {label} {dt}: differs from the reference kernel")
+    return err
+
+
+def _snapshot(t):
+    """A copy of ``t`` with its shape and strides (a stride-0 axis stays
+    one, reading one copied slice)."""
+    import torch
+    src = t
+    for i, (n, st) in enumerate(zip(t.shape, t.stride())):
+        if st == 0 and n > 1:
+            src = src.narrow(i, 0, 1)
+    span = 1 + sum((n - 1) * st for n, st in zip(src.shape, src.stride()))
+    buf = torch.empty(max(span, 1), dtype=t.dtype, device=t.device)
+    buf.as_strided(src.shape, src.stride()).copy_(src)
+    return buf.as_strided(t.shape, t.stride())
+
+
+class K4Recorder:
+    """While on, keeps the operands and result of the first K4 call of
+    each distinct operand layout (shapes, strides, dtype, bias, ReLU) made
+    on the card.  It wraps ``subnet_mlp._affine`` and ``_dx_rows``, which
+    every forward and gradient of K4's routes goes through; the wrapped
+    calls launch and count as before, the recorder itself launches
+    nothing."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.seen = 0
+
+    def __enter__(self):
+        from repro_torch.kernels import subnet_mlp
+        self._orig = affine, dx_rows = (subnet_mlp._affine,
+                                        subnet_mlp._dx_rows)
+
+        def rec_affine(x, w, b, activate):
+            y = affine(x, w, b, activate)
+            self._keep(("affine", bool(activate)), (x, w, b), y)
+            return y
+
+        def rec_dx(dy, w):
+            dx = dx_rows(dy, w)
+            self._keep(("dx",), (dy, w), dx)
+            return dx
+
+        subnet_mlp._affine, subnet_mlp._dx_rows = rec_affine, rec_dx
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import subnet_mlp
+        subnet_mlp._affine, subnet_mlp._dx_rows = self._orig
+
+    def _keep(self, kind, args, out) -> None:
+        if not out.is_cuda:
+            return
+        self.seen += 1
+        key = kind + tuple(None if t is None else
+                           (tuple(t.shape), tuple(t.stride()), t.dtype)
+                           for t in args)
+        if key not in self.calls:
+            self.calls[key] = (kind, [None if t is None else _snapshot(t)
+                                      for t in args], out.clone())
+
+
+def hold_k4_record(rec: "K4Recorder", label: str) -> dict:
+    """Every call ``rec`` kept, launched again: equal bit for bit to what
+    the recorded run got; the forward routes held by
+    :func:`hold_k4_affine`, the dense gradient against its plain version
+    at the gradient tolerance (rtol 1e-4, atol 1e-5 x the largest
+    |dx|).  Returns {route: {"layouts", "max_abs_err"}}."""
+    import torch
+    from repro_torch.kernels import subnet_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out: dict = {}
+    for key, (kind, args, want) in rec.calls.items():
+        shape = [list(k[0]) for k in key[len(kind):] if k is not None]
+        if kind[0] == "affine":
+            x, w, b = args
+            route = f"unit_affine_{subnet_mlp.route(x)}"
+            where = f"{label}, {route} {shape}"
+            if not torch.equal(subnet_mlp.unit_affine_cuda(
+                    x, w, b, activate=kind[1]), want):
+                fail(f"K4 {where}: a second launch differs from the "
+                     "recorded result")
+            err = hold_k4_affine(x, w, b, kind[1], where)
+        else:
+            dy, w = args
+            route = "unit_affine_dx"
+            got = subnet_mlp.unit_affine_dx_cuda(dy, w)
+            plain = subnet_mlp.unit_affine_dx_plain(dy, w)
+            scale = float(plain.abs().max()) if plain.numel() else 0.0
+            err = float((got - plain).abs().max()) if got.numel() else 0.0
+            if not torch.equal(got, want):
+                fail(f"K4 {label}, dx {shape}: a second launch differs "
+                     "from the recorded result")
+            if not torch.allclose(got, plain, rtol=K4_GRAD_RTOL,
+                                  atol=K4_GRAD_ATOL * scale):
+                fail(f"K4 {label}, dx {shape}: max |diff| {err} of {scale}")
+        r = out.setdefault(route, {"layouts": 0, "max_abs_err": 0.0})
+        r["layouts"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    torch.cuda.synchronize()
+    return out
+
+
+def k4_population(dev, smi: str, seed: int) -> dict:
+    """Phase 10, part 1: K4's per-unit route at the population shape.  The
+    largest shape-signature group of ``mnist``'s default search space,
+    stacked: layer 0's first affine ``[256, P*2160, 6] -> 64`` and its
+    ``64 -> 64`` stage held as ``check_unit_affine`` holds K4 (the plain
+    version at f32 rtol = atol = 1e-5 x sqrt(din/64) where din > 64, the
+    reference kernel bit for bit in f32 and bf16), one launch a stage a
+    forward for the whole group, one population step on the card against
+    the CPU (``hold_step``: rtol 1e-4), peak memory, and the stages' times
+    beside their bounds and one ``torch.baddbmm`` on the same operands."""
+    import torch
+    from repro_torch.core import assemble, quant
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import build, subnet_mlp
+    from repro_torch.search import SearchBudget
+    from repro_torch.train import lut_trainer, optim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    members = _largest_signature_group("mnist", SearchBudget())
+    cfgs = [m.cfg for m in members]
+    cfg, p = cfgs[0], len(members)
+    seeds = lut_trainer.population_seeds(seed, p)
+    bounds = lut_trainer.stack_bounds(cfgs)
+    data = synthetic.load("mnist", n_train=POP_BATCH, n_test=16)
+    x = torch.from_numpy(data.x_train[:POP_BATCH]).to(dev)
+    y = torch.from_numpy(data.y_train[:POP_BATCH]).to(dev)
+    pop = lut_trainer.init_population(seeds, cfg, device=dev)
+    with torch.no_grad():
+        lo, hi = (t.to(dev) for t in bounds["in"])
+        h0 = quant.fake_quant_dynamic(pop.in_q.log_scale[:, None],
+                                      lo[:, None], hi[:, None], x[:, None, :])
+        x0 = assemble.gather_population_inputs(cfg, pop.layers[0], 0, h0)
+        sn = pop.layers[0].subnet
+        w0, b0 = sn.w[0].detach(), sn.b[0].detach()
+        x1 = subnet_mlp.unit_affine_cuda(x0, w0, b0, activate=True)
+        w1, b1 = sn.w[1].detach(), sn.b[1].detach()
+    if tuple(x0.shape) != (POP_BATCH, p * cfg.layers[0].units,
+                           cfg.layers[0].fan_in) or not x0.is_contiguous():
+        fail(f"population layer 0 operand {tuple(x0.shape)}, contiguous "
+             f"{x0.is_contiguous()}")
+    errs = {label: hold_k4_affine(xx, ww, bb, True, f"population {label}")
+            for label, (xx, ww, bb) in (("6->64", (x0, w0, b0)),
+                                        ("64->64", (x1, w1, b1)))}
+    # one launch a stage a forward for the whole group
+    stages = _stages(cfg)
+    torch.cuda.synchronize()
+    build.reset_counters()
+    with torch.no_grad():
+        lut_trainer.population_forward(pop, cfg, bounds, x, training=False)
+    torch.cuda.synchronize()
+    fwd = build.launch_counts()
+    if (fwd.get("unit_affine_units", 0) != stages
+            or fwd.get("unit_affine_dense", 0)
+            or fwd.get("unit_affine_reference", 0)):
+        fail(f"population forward of P={p}: K4 launches {fwd}, want "
+             f"{stages} per-unit (one a stage), none dense or reference")
+    # one step at the search's batch: its launches and peak memory
+    ocfg = optim.AdamWConfig(lr=5e-3, weight_decay=1e-4)
+    opt = optim.adamw_init(assemble.leaves(pop))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_counters()
+    t_step = time.perf_counter()
+    lut_trainer.population_step(pop, cfg, ocfg, opt, bounds, x, y)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t_step
+    step_counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    # one step card vs CPU from the same inits, on POP_CPU_BATCH rows
+    nets, losses = [], []
+    for d in ("cpu", dev):
+        net = lut_trainer.init_population(seeds, cfg, device=d)
+        o = optim.adamw_init(assemble.leaves(net))
+        _, loss, _ = lut_trainer.population_step(
+            net, cfg, ocfg, o, bounds, x[:POP_CPU_BATCH].to(d),
+            y[:POP_CPU_BATCH].to(d))
+        nets.append(net)
+        losses.append(float(loss.sum()))
+    worst = hold_step(nets[0], nets[1], losses, 5e-3,
+                      f"population step P={p}, card vs CPU")
+    del nets
+    rows = []
+    for label, (xx, ww, bb) in (("6->64", (x0, w0, b0)),
+                                ("64->64", (x1, w1, b1))):
+        bsz, u, din = xx.shape
+        dout = ww.shape[2]
+        kern = lambda xx=xx, ww=ww, bb=bb: subnet_mlp.unit_affine_cuda(  # noqa: E731
+            xx, ww, bb, activate=True)
+        lib = lambda xx=xx, ww=ww, bb=bb: torch.baddbmm(  # noqa: E731
+            bb[:, None, :], xx.transpose(0, 1), ww)
+        bound_ms, bound_by = bound(
+            (bsz * u * din + u * din * dout + u * dout + bsz * u * dout) * 4,
+            2 * bsz * u * din * dout, F32_FLOPS_PER_S)
+        lib_dev, lib_kernels = traced_all_ms(lib)
+        rows.append({
+            "name": "unit_affine_units", "path": "search/mnist population",
+            "task": f"mnist layer 0 {label}, P={p}", "batch": bsz,
+            "shape": [bsz, u, din, dout], "launches": step_counts.get(
+                "unit_affine_units", 0),
+            "max_abs_err": errs[label],
+            "ms": per_call_ms(kern, calls=20),
+            "device_ms": traced_ms(kern, "unit_affine_units_kernel"),
+            "plain_ms": per_call_ms(
+                lambda xx=xx, ww=ww, bb=bb: subnet_mlp.unit_affine_plain(
+                    xx, ww, bb, activate=True), calls=10),
+            "library_ms": per_call_ms(lib, calls=20),
+            "library_device_ms": lib_dev, "library_kernels": lib_kernels,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+    out = {"task": "mnist", "members": [m.name for m in members], "p": p,
+           "units": p * cfg.layers[0].units, "stages_per_forward": stages,
+           "forward_launches": fwd, "step_launches": step_counts,
+           "step_s": t_step, "peak_bytes": peak,
+           "card_vs_cpu": {"batch": POP_CPU_BATCH, "loss_cpu": losses[0],
+                           "loss_card": losses[1], "max_param_diff": worst},
+           "max_abs_err": errs, "kernels": rows}
+    print(f"population K4 at mnist width: P={p} ({out['members']}), "
+          f"[{POP_BATCH}, {out['units']}, 6] -> 64 and 64 -> 64 equal to the "
+          f"plain version (max |diff| {errs}) and to the reference kernel; "
+          f"forward launches {fwd.get('unit_affine_units')} per-unit for "
+          f"{stages} stages; a step {t_step * 1e3:.1f} ms, launches "
+          f"{step_counts}, peak {peak / 2**30:.2f} GiB; card vs CPU step "
+          f"{worst:.3e} [{smi}]", flush=True)
+    for r in rows:
+        print(f"time unit_affine_units ({r['task']}): kernel {r['ms']:.4f} "
+              f"ms (device {r['device_ms']} ms), plain {r['plain_ms']:.4f} "
+              f"ms, baddbmm {r['library_ms']:.4f} ms (device "
+              f"{r['library_device_ms']} ms), bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}) [{smi}]", flush=True)
+    return out
+
+
+def rung_idle_share(dev, smi: str, seed: int) -> dict:
+    """The device's idle share over population steps of ``nid``'s largest
+    rung group (the default budget's), from a trace that holds every
+    launch (taken again with a longer lead otherwise; None after
+    ``TRACE_LEADS`` tries); also its K4 launches a step, and one step of
+    the group on the card against the CPU at the search's batch
+    (``hold_step``: rtol 1e-4)."""
+    import torch
+    from repro_torch.core import assemble
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import build
+    from repro_torch.search import SearchBudget
+    from repro_torch.train import lut_trainer, optim
+
+    members = _largest_signature_group("nid", SearchBudget())
+    cfgs = [m.cfg for m in members]
+    cfg = cfgs[0]
+    seeds = lut_trainer.population_seeds(seed, len(cfgs))
+    bounds = lut_trainer.stack_bounds(cfgs)
+    data = synthetic.load("nid", n_train=POP_BATCH, n_test=16)
+    x = torch.from_numpy(data.x_train[:POP_BATCH]).to(dev)
+    y = torch.from_numpy(data.y_train[:POP_BATCH]).to(dev)
+    ocfg = optim.AdamWConfig(lr=5e-3, weight_decay=1e-4)
+    # one step card vs CPU from the same inits on the same batch
+    nets, losses = [], []
+    for d in ("cpu", dev):
+        net = lut_trainer.init_population(seeds, cfg, device=d)
+        _, loss, _ = lut_trainer.population_step(
+            net, cfg, ocfg, optim.adamw_init(assemble.leaves(net)), bounds,
+            x.to(d), y.to(d))
+        nets.append(net)
+        losses.append(float(loss.sum()))
+    worst = hold_step(nets[0], nets[1], losses, 5e-3,
+                      f"nid population step P={len(cfgs)}, card vs CPU")
+    del nets
+    pop = lut_trainer.init_population(seeds, cfg, device=dev)
+    state = {"opt": optim.adamw_init(assemble.leaves(pop))}
+
+    def step():
+        state["opt"] = lut_trainer.population_step(
+            pop, cfg, ocfg, state["opt"], bounds, x, y)[0]
+
+    step()
+    torch.cuda.synchronize()
+    build.reset_counters()
+    step()
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    if counts.get("unit_affine_units", 0) < _stages(cfg):
+        fail(f"nid population step: K4 launches {counts}")
+    for lead in TRACE_LEADS:
+        wall, prof, lost = profile(step, calls=10, lead=lead)
+        if prof and not lost:
+            break
+        RETRACED.append({"kernel": "rung steps", "lead": lead, "lost": lost,
+                         "lead_lost": LEAD_LOST[-1]})
+    else:
+        _untraced("a rung's steps", f"{lost} launch calls without device "
+                  "work")
+        return {"members": [m.name for m in members], "steps": 10,
+                "wall_s": wall, "device_busy_s": None,
+                "device_idle_share": None, "launches_per_step": counts,
+                "card_vs_cpu": {"batch": POP_BATCH, "loss_cpu": losses[0],
+                                "loss_card": losses[1],
+                                "max_param_diff": worst}}
+    busy = sum(sec for _, sec in prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
+    out = {"members": [m.name for m in members], "steps": 10,
+           "wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1.0 - busy / wall, "trace_lead": lead,
+           "launches_per_step": counts,
+           "card_vs_cpu": {"batch": POP_BATCH, "loss_cpu": losses[0],
+                           "loss_card": losses[1], "max_param_diff": worst},
+           "top_kernels": {k[:60]: (c, sec * 1e3) for k, (c, sec) in top}}
+    print(f"nid rung group P={len(cfgs)} ({out['members']}), 10 profiled "
+          f"steps: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.3f} "
+          f"ms, idle share {out['device_idle_share']:.3f}; K4 a step "
+          f"{counts.get('unit_affine_units')} per-unit; card vs CPU step "
+          f"{worst:.3e} [{smi}]", flush=True)
+    return out
+
+
+def _non_dominated(front) -> bool:
+    return all(not (q.accuracy >= p.accuracy and q.adp <= p.adp
+                    and (q.accuracy > p.accuracy or q.adp < p.adp))
+               for p in front for q in front if p is not q)
+
+
+def search_nid(dev, smi: str, seed: int, art_dir: Path) -> dict:
+    """Phase 10, part 2: ``Toolflow.search("nid", ...)``, the full Table-II
+    ``nid`` with the default budget on the card (sliced in 2, run
+    sequentially).  The frontier must be
+    non-empty, ranked and non-dominated; every frontier artifact, saved and
+    loaded, must answer bit-identically on ``take``, ``fused`` and
+    ``pallas`` on the card and from a CPU load, with the fused kernel
+    launched once a block and K3 once a layer a block.  The best frontier
+    accuracy must pass ``SEARCH_NID_ACCURACY``.  Every K4 operand layout
+    the search launched (population rungs on the per-unit route, the
+    promotions' dense, per-unit and dense-gradient routes) is kept by a
+    :class:`K4Recorder` and held afterwards by :func:`hold_k4_record`."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.kernels import autotune, build
+    from repro_torch.search import SearchBudget
+
+    budget = dataclasses.replace(SearchBudget(), seed=seed,
+                                 population_slices=2)
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    with K4Recorder() as rec:
+        res = pipeline.Toolflow.search("nid", budget, device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    front = res.frontier
+    accs = [p.accuracy for p in front]
+    if not front or accs != sorted(accs, reverse=True) or \
+            not _non_dominated(front):
+        fail(f"nid search: frontier not ranked and non-dominated: "
+             f"{[(p.name, p.accuracy, p.adp) for p in front]}")
+    if not accs[0] > SEARCH_NID_ACCURACY:
+        fail(f"nid search: best frontier accuracy {accs[0]} <= "
+             f"{SEARCH_NID_ACCURACY}")
+    k4_routes = ("unit_affine_dense", "unit_affine_units", "unit_affine_dx")
+    if counts.get("unit_affine_reference", 0) or \
+            not all(counts.get(k, 0) for k in k4_routes):
+        fail(f"nid search: K4 launches {counts}")
+    t_hold = time.perf_counter()
+    held = hold_k4_record(rec, "nid search")
+    t_hold = time.perf_counter() - t_hold
+    if sorted(held) != sorted(k4_routes):
+        fail(f"nid search: recorded K4 routes {sorted(held)}")
+    rs = np.random.RandomState(seed + 10)
+    xs = rs.uniform(-1.0, 1.0, (SEARCH_ROWS, 593)).astype(np.float32)
+    blocks = SEARCH_ROWS // SEARCH_BLOCK
+    points = []
+    for i, p in enumerate(front):
+        path = p.compiled.save(str(art_dir / f"search_nid_{i}.npz"))
+        cpu = pipeline.CompiledLUTNetwork.load(path, device="cpu")
+        want = cpu.predict_codes(xs, backend="take").numpy()
+        net = pipeline.CompiledLUTNetwork.load(path, device=dev)
+        plan = net.compile_backend("fused").plan
+        layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
+        fused_k = ("lut_cascade_resident" if autotune.hopper_mode(
+            layers, plan.tensor("tables", dev).element_size()) == "resident"
+            else "lut_cascade_streamed")
+        served = {}
+        for backend, kname, per in (("take", None, 0),
+                                    ("fused", fused_k, 1),
+                                    ("pallas", "lut_lookup",
+                                     len(net.cfg.layers))):
+            eng = _warm_engine(net, backend)
+            torch.cuda.synchronize()
+            build.reset_counters()
+            reqs = eng.submit_many(xs)
+            while eng.queue:
+                eng.tick()
+            eng.drain()
+            torch.cuda.synchronize()
+            got = np.stack([r.codes for r in reqs])
+            c = build.launch_counts()
+            if not np.array_equal(got, want) or not np.array_equal(
+                    cpu.predict_codes(xs, backend=backend).numpy(), want):
+                fail(f"nid frontier {p.name}/{backend}: codes differ from "
+                     "take on the CPU")
+            lut = {k: c.get(k, 0) for k in LUT_KERNELS}
+            if kname is not None and (lut[kname] != per * blocks or sum(
+                    lut.values()) != per * blocks):
+                fail(f"nid frontier {p.name}/{backend}: launches {lut}, "
+                     f"want {per * blocks} of {kname}")
+            served[backend] = lut
+        points.append({
+            "name": p.name, "accuracy": p.accuracy, "luts": p.luts,
+            "adp": p.adp, "latency_ns": p.latency_ns,
+            "fmax_mhz": p.fmax_mhz, "calibration": p.calibration,
+            "rung_accuracy": p.rung_accuracy, "learned_beta": p.learned_beta,
+            "layers": [[l.units, l.fan_in, l.bits, l.assemble]
+                       for l in p.cfg.layers],
+            "fused_kernel": fused_k, "launches": served})
+    st = res.stage_seconds
+    out = {"task": "nid", "budget": dataclasses.asdict(budget),
+           "wall_s": wall, "search_seconds": res.seconds,
+           "stage_seconds": {k: {"total": sum(v), "each": v}
+                             for k, v in st.items()},
+           "launches": counts, "k4_held": held, "k4_calls_seen": rec.seen,
+           "k4_hold_s": t_hold, "rungs": res.rungs,
+           "rejected": len(res.rejected), "evaluated": len(res.evaluated),
+           "promoted": [p.name for p in res.promoted], "frontier": points,
+           "served_rows": SEARCH_ROWS, "block": SEARCH_BLOCK}
+    print(f"nid search (default budget, 2 slices) on the card: "
+          f"{wall:.1f} s; rungs {[round(s, 2) for s in st['rungs']]} s, "
+          f"promotions {sum(st.get('promotions', [])):.1f} s "
+          f"({len(res.promoted)}), calibration "
+          f"{sum(st.get('calibration', [])):.2f} s; K4 launches "
+          f"{ {k: v for k, v in counts.items() if k.startswith('unit')} }; "
+          f"every K4 layout launched ({held}) equal to the plain version "
+          f"and the reference kernel ({t_hold:.1f} s); frontier [{smi}]:",
+          flush=True)
+    for pt in points:
+        print(f"  {pt['name']}: accuracy {pt['accuracy']:.4f}, LUTs "
+              f"{pt['luts']}, ADP {pt['adp']:.1f}, calibration "
+              f"{pt['calibration']:.4f}; take/fused/pallas == CPU, "
+              f"{pt['fused_kernel']} {blocks} and K3 "
+              f"{pt['launches']['pallas']['lut_lookup']} launches for "
+              f"{blocks} blocks", flush=True)
+    return out
+
+
+def _warm_engine(net, backend: str):
+    """A ``LUTEngine`` serving ``net`` at ``SEARCH_BLOCK`` rows a block,
+    warmed up (not counted)."""
+    from repro_torch.serve.lut_engine import LUTEngine
+    import numpy as np
+    eng = LUTEngine(net, block=SEARCH_BLOCK, depth=2, backend=backend)
+    eng.run(np.zeros((SEARCH_BLOCK, net.cfg.in_features), np.float32))
+    return LUTEngine(net, block=SEARCH_BLOCK, depth=2, backend=backend)
+
+
+def search_mesh(dev, smi: str, seed: int) -> dict:
+    """Phase 10, part 3: ``nid_reduced`` with the smoke budget over 2 slots
+    on one card (a worker thread and a stream a slot) against the sliced
+    sequential run: identical rung survivors and scores; then a slot
+    delayed past the straggler deadline (its slices partial, every other
+    score unchanged) and a slot lost on its first job (remeshed, the clean
+    survivors)."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.search import (DistributedSearchBudget, SearchBudget,
+                                    driver, run_search)
+
+    budget = DistributedSearchBudget.from_budget(
+        dataclasses.replace(SearchBudget.smoke(), seed=seed),
+        population_slices=2, straggler_grace_s=30.0)
+    # the sequential reference and the hook runs stop at the survivors
+    # (fixed before any promotion); the meshed run also promotes, two
+    # slots at a time
+    fast = DistributedSearchBudget.from_budget(
+        budget, promote=0, min_frontier=0, max_promote_extra=0)
+    tight = DistributedSearchBudget.from_budget(
+        fast, straggler_factor=1.0, straggler_grace_s=2.0)
+    mesh = make_serving_mesh(slots=2, device=dev)
+    t0 = time.perf_counter()
+    sliced = run_search("nid_reduced", fast, device=dev)
+    t1 = time.perf_counter()
+    meshed = run_search("nid_reduced", budget, mesh=mesh)
+    t2 = time.perf_counter()
+    surv = [r["survivors"] for r in sliced.rungs]
+    if [r["survivors"] for r in meshed.rungs] != surv or \
+            meshed.evaluated != sliced.evaluated or meshed.dist["partial"] \
+            or not meshed.frontier:
+        fail(f"meshed rungs differ from the sliced run: "
+             f"{meshed.rungs} vs {sliced.rungs}")
+    out = {"slots": 2, "physical_devices": 1, "survivors": surv,
+           "sliced_rungs_s": t1 - t0, "meshed_s": t2 - t1,
+           "meshed_promoted": [p.name for p in meshed.promoted],
+           "frontier_meshed": [p.name for p in meshed.frontier]}
+    for name, hooks, b in (("delay", {"delay": {1: 9999.0}}, tight),
+                           ("fail_once", {"fail_once": {1}}, fast)):
+        driver._TEST_HOOKS.clear()
+        driver._TEST_HOOKS.update(hooks)
+        try:
+            r = run_search("nid_reduced", b, mesh=mesh)
+        finally:
+            driver._TEST_HOOKS.clear()
+        part = set(r.dist["partial"])
+        if name == "delay":
+            ok = bool(part) and r.rungs[0]["survivors"] and all(
+                e["rungs"] == c["rungs"] for e, c in zip(
+                    r.evaluated, sliced.evaluated) if e["name"] not in part)
+        else:
+            ev = r.dist["remesh_events"]
+            ok = (ev and ev[0]["ok"] and ev[0]["new_devices"] == 1
+                  and not part
+                  and [x["survivors"] for x in r.rungs] == surv)
+        if not ok:
+            fail(f"meshed search, {name} hook: {r.dist}, {r.rungs}")
+        out[name] = {"partial": sorted(part),
+                     "straggler_events": len(r.dist["straggler_events"]),
+                     "remesh_events": r.dist["remesh_events"],
+                     "survivors": [x["survivors"] for x in r.rungs]}
+    print(f"nid_reduced search over 2 slots on one card: survivors equal "
+          f"the sliced run's ({t1 - t0:.1f} s sliced rungs, {t2 - t1:.1f} s "
+          f"meshed with {len(meshed.promoted)} promotions); delayed slot: {len(out['delay']['partial'])} "
+          f"candidates partial; lost slot: remeshed to 1, survivors equal "
+          f"[{smi}]", flush=True)
+    return out
+
+
+def search_phase(dev, smi: str, seed: int, art_dir: Path) -> dict:
+    """Slice 10's main path: the assembly search on the card."""
+    t0 = time.perf_counter()
+    out = {"population": k4_population(dev, smi, seed)}
+    out["rung_idle"] = rung_idle_share(dev, smi, seed)
+    out["nid"] = search_nid(dev, smi, seed, art_dir)
+    out["mesh"] = search_mesh(dev, smi, seed)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 10 (the assembly search): {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def main(seed: int) -> dict:
     """Run every phase; return the report (exits on the first failure)."""
     import numpy as np
@@ -2458,6 +3063,9 @@ def main(seed: int) -> dict:
                                   report["toolflow_mnist"]["artifact"],
                                   report["stream"]["artifact"])
 
+    # -- phase 10: the assembly search (slice 10) -----------------------------
+    report["search"] = search_phase(dev, smi, seed, art_dir)
+
     for k in kernels:
         if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
@@ -2514,6 +3122,11 @@ def main(seed: int) -> dict:
             k, route="cuda", source=SOURCES[k["name"]],
             replaces=REPLACES[k["name"]],
             launches=run["launches"][k["name"]]))
+    # the search's new call shape: K4 per-unit at a stacked population,
+    # launches of the population step at that shape
+    for k in report["search"]["population"]["kernels"]:
+        kernels.append(dict(k, route="cuda", source=SOURCES[k["name"]],
+                            replaces=REPLACES[k["name"]]))
     report["kernels"] = kernels
     report["profiler_lead_lost"] = {str(n): LEAD_LOST.count(n)
                                     for n in sorted(set(LEAD_LOST))}
@@ -2553,6 +3166,18 @@ if __name__ == "__main__":
         "swaps": fl["hot_swap"]["swap_history"],
         "failover": {key: fl["failover"][key] for key in (
             "streams", "steps", "mismatched_streams", "lost_steps")}}}))
+    se = rep["search"]
+    print(json.dumps({"search": {
+        "population": {key: se["population"][key] for key in (
+            "p", "units", "stages_per_forward", "step_s", "peak_bytes")},
+        "rung_idle_share": se["rung_idle"]["device_idle_share"],
+        "nid": {"wall_s": se["nid"]["wall_s"],
+                "stage_seconds": {k: v["total"] for k, v in
+                                  se["nid"]["stage_seconds"].items()},
+                "frontier": [{key: pt[key] for key in (
+                    "name", "accuracy", "luts", "adp", "calibration")}
+                    for pt in se["nid"]["frontier"]]},
+        "mesh_survivors_equal": True, "seconds": se["seconds"]}}))
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

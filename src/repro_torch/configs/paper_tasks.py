@@ -102,11 +102,24 @@ def task_names():
     return tuple(TASKS)
 
 
+def reduced_task_names():
+    """The reduced surrogates, which train in seconds on the CPU (the
+    search's smoke runs iterate these)."""
+    return tuple(n for n in TASKS if n.endswith("_reduced"))
+
+
 def task_config(name: str) -> AssembleConfig:
     """Base architecture of a registered task."""
     if name not in TASKS:
         raise ValueError(f"unknown task {name!r}; known: {sorted(TASKS)}")
     return TASKS[name][1]()
+
+
+def task_dataset(name: str) -> str:
+    """Dataset name (for ``data.synthetic.load``) of a registered task."""
+    if name not in TASKS:
+        raise ValueError(f"unknown task {name!r}; known: {sorted(TASKS)}")
+    return TASKS[name][0]
 
 
 # ---------------------------------------------------------------------------

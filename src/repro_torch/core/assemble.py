@@ -288,17 +288,34 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
-def params_to_reference(net: LUTNet) -> dict:
+def params_to_reference(net: LUTNet, *, population: bool = False) -> dict:
     """The reference's parameter pytree as numpy arrays (float32 leaves,
-    int32 mappings)."""
-    return _map_tree(lambda t: t.detach().cpu().numpy().copy(),
+    int32 mappings).  ``population=True`` takes a stacked population
+    (:func:`stack_population`) to the reference's vmapped form: every leaf
+    with a leading ``[P]`` candidate axis."""
+    tree = _map_tree(lambda t: t.detach().cpu().numpy().copy(),
                      param_tree(net))
+    if population:
+        p = population_size(net)
+        for d in tree["layers"]:
+            d["subnet"] = _map_tree(
+                lambda a: a.reshape((p, a.shape[0] // p) + a.shape[1:]),
+                d["subnet"])
+    return tree
 
 
-def params_from_reference(tree: dict, *, device=None) -> LUTNet:
+def params_from_reference(tree: dict, *, device=None,
+                          population: bool = False) -> LUTNet:
     """Build a :class:`LUTNet` on ``device`` (CUDA by default) from the
-    reference's parameter pytree (nested dicts and lists of arrays)."""
+    reference's parameter pytree (nested dicts and lists of arrays).
+    ``population=True`` reads the vmapped form of a population (a leading
+    ``[P]`` axis on every leaf) into a stacked population."""
     dev = _device.resolve(device)
+    if population:
+        tree = dict(tree, layers=[dict(d, subnet=_map_tree(
+            lambda a: np.asarray(a).reshape(
+                (-1,) + np.asarray(a).shape[2:]), d["subnet"]))
+            for d in tree["layers"]])
 
     def t(a):
         return torch.from_numpy(np.array(a)).to(dev)
@@ -333,6 +350,124 @@ def gather_layer_inputs(cfg: AssembleConfig, layer: Layer, l: int,
     if spec.assemble:
         return h.reshape(h.shape[0], spec.units, spec.fan_in)
     return h[:, layer.mapping.long()]
+
+
+# ---------------------------------------------------------------------------
+# populations: many candidates of one shape as one network
+# ---------------------------------------------------------------------------
+#
+# The assembly search trains a group of P candidates that share every
+# parameter shape (``search.space.shape_signature``) at once.  The port
+# stacks them along the unit axis: layer l's subnets hold P * rows units,
+# candidate p's in rows [p * rows, (p + 1) * rows), so each affine stage of
+# the whole group is one K4 launch of the per-unit route.  Quantizer
+# log-scales are [P] tensors and mappings [P, rows, fan_in].  Activations
+# are batch-major, [batch, P, width], so a layer's gathered inputs
+# [batch, P * rows, fan_in] are contiguous and reach K4 without a copy.
+
+
+def stack_population(nets: Sequence[LUTNet]) -> LUTNet:
+    """One population network from P networks of one shape, candidate p
+    being ``nets[p]`` (on their device)."""
+    def q(qs):
+        return quant.Quantizer(torch.stack([x.log_scale.detach()
+                                            for x in qs]))
+
+    def cat(ts):
+        return torch.cat([t.detach() for t in ts])
+
+    layers = []
+    for l, layer in enumerate(nets[0].layers):
+        sns = [n.layers[l].subnet for n in nets]
+        bn = quant.BatchNorm(sum(s.bn.gamma.shape[0] for s in sns),
+                             device=nets[0].device)
+        with torch.no_grad():
+            for k in ("gamma", "beta", "mean", "var"):
+                getattr(bn, k).copy_(cat([getattr(s.bn, k) for s in sns]))
+        sn = subnet.Subnet(
+            [cat([s.w[i] for s in sns]) for i in range(len(sns[0].w))],
+            [cat([s.b[i] for s in sns]) for i in range(len(sns[0].b))],
+            [cat([s.skip_w[i] for s in sns])
+             for i in range(len(sns[0].skip_w))], bn)
+        mapping = (None if layer.mapping is None else
+                   torch.stack([n.layers[l].mapping for n in nets]))
+        layers.append(Layer(
+            sn, q([n.layers[l].out_q for n in nets]),
+            add_q=(None if layer.add_q is None
+                   else q([n.layers[l].add_q for n in nets])),
+            mapping=mapping))
+    return LUTNet(q([n.in_q for n in nets]), layers)
+
+
+def population_size(net: LUTNet) -> int:
+    """Candidates in a stacked population (its input log-scale's length)."""
+    if net.in_q.log_scale.dim() != 1:
+        raise ValueError("not a stacked population (scalar log-scale)")
+    return int(net.in_q.log_scale.shape[0])
+
+
+def population_member(net: LUTNet, i: int) -> LUTNet:
+    """A copy of candidate ``i`` of a stacked population as a network of
+    its own."""
+    tree = params_to_reference(net, population=True)
+    return params_from_reference(_map_tree(lambda a: a[i], tree),
+                                 device=net.device)
+
+
+class _GatherColumns(torch.autograd.Function):
+    """``h[:, idx]`` whose gradient is a fixed-order sum, not an indexed
+    accumulation: ``inv`` lists, for each column of h, the positions of
+    ``idx`` that read it (padded with ``len(idx)``, a zero column), so the
+    backward gives the same bits on every run and every stream (an
+    accumulating ``index_put_`` on CUDA adds in launch order)."""
+
+    @staticmethod
+    def forward(ctx, h, idx, inv):
+        """Columns ``idx`` of ``h [batch, width]``."""
+        ctx.save_for_backward(inv)
+        return h[:, idx]
+
+    @staticmethod
+    def backward(ctx, dy):
+        """Each column's gradient, summed over its readers in order."""
+        inv, = ctx.saved_tensors
+        pad = torch.cat([dy, dy.new_zeros((dy.shape[0], 1))], dim=1)
+        return pad[:, inv].sum(-1), None, None
+
+
+def _gather_plan(layer: Layer, width: int):
+    """(flat column index, inverse) of a population's mapping layer, built
+    once and kept on the layer."""
+    plan = getattr(layer, "_gather_plan", None)
+    if plan is None:
+        m = layer.mapping.long()
+        p = m.shape[0]
+        idx = (m + width * torch.arange(p, device=m.device)[:, None, None]
+               ).reshape(-1)
+        order = torch.argsort(idx, stable=True)
+        counts = torch.bincount(idx, minlength=p * width)
+        starts = torch.cumsum(counts, 0) - counts
+        sorted_idx = idx[order]
+        rank = torch.arange(idx.numel(), device=m.device) - starts[sorted_idx]
+        inv = torch.full((p * width, max(int(counts.max()), 1)), idx.numel(),
+                         dtype=torch.long, device=m.device)
+        inv[sorted_idx, rank] = order
+        plan = (idx, inv)
+        layer._gather_plan = plan
+    return plan
+
+
+def gather_population_inputs(cfg: AssembleConfig, layer: Layer, l: int,
+                             h: torch.Tensor) -> torch.Tensor:
+    """``[batch, P, prev] -> [batch, P * rows, fan_in]``, candidate p's
+    units reading candidate p's activations."""
+    spec = cfg.layers[l]
+    b, p, width = h.shape
+    if spec.assemble:
+        return h.reshape(b, p * spec.units, spec.fan_in)
+    idx, inv = _gather_plan(layer, width)
+    out = _GatherColumns.apply(h.reshape(b, p * width), idx, inv)
+    return out.view(b, -1, spec.fan_in)
 
 
 def apply(net: LUTNet, cfg: AssembleConfig, x: torch.Tensor, *,

@@ -95,6 +95,47 @@ def fake_quant(params: Quantizer, spec: QuantSpec,
     return torch.minimum(torch.maximum(q, lo), hi) * s
 
 
+def fake_quant_dynamic(params, qmin, qmax, x: torch.Tensor) -> torch.Tensor:
+    """:func:`fake_quant` with tensor clip bounds.
+
+    ``params`` is a :class:`Quantizer` or a log-scale tensor; the log-scale,
+    ``qmin`` and ``qmax`` broadcast against ``x``, so a candidate axis of a
+    search population can carry its own scale and bit-width
+    (``lut_trainer.population_forward``).  The clip passes half the
+    gradient at a tie, to ``q`` and to the bound, as ``jnp.clip`` does, so
+    a bound built from a trainable bit-width (:func:`beta_bounds`) gets its
+    gradient through the saturation.  Equal to :func:`fake_quant` when the
+    bounds are the spec's.
+    """
+    ls = params.log_scale if isinstance(params, Quantizer) else params
+    s = torch.exp(ls)
+    q = _round_ste(x / s)
+    lo = torch.as_tensor(qmin, dtype=q.dtype, device=q.device)
+    hi = torch.as_tensor(qmax, dtype=q.dtype, device=q.device)
+    return torch.minimum(torch.maximum(q, lo), hi) * s
+
+
+def beta_bounds(beta: torch.Tensor,
+                signed: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable clip bounds ``2^beta`` levels wide for a trainable
+    bit-width ``beta`` (the HGQ-LUT relaxation): ``[-2^(b-1), 2^(b-1)-1]``
+    signed, ``[0, 2^b - 1]`` unsigned.  Fed to :func:`fake_quant_dynamic`
+    the clip range, and so the loss, depends on ``beta``; promotion snaps it
+    back to integers (:func:`round_beta`)."""
+    levels = 2.0 ** beta
+    if signed:
+        return -levels / 2.0, levels / 2.0 - 1.0
+    return torch.zeros_like(levels), levels - 1.0
+
+
+def round_beta(beta, lo: int = 1, hi: int = 8) -> np.ndarray:
+    """Learned bit-widths rounded (half to even) onto the integer grid
+    ``[lo, hi]``, as an int64 numpy array."""
+    if isinstance(beta, torch.Tensor):
+        beta = beta.detach().cpu().numpy()
+    return np.clip(np.rint(np.asarray(beta)), lo, hi).astype(np.int64)
+
+
 class BatchNorm(nn.Module):
     """Batch-norm over all leading axes: ``gamma``/``beta`` parameters and
     the running ``mean``/``var`` as buffers."""

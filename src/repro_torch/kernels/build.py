@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Tuple
@@ -38,16 +39,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 class LaunchCounter:
-    """A plain count of one kernel's launches."""
+    """A count of one kernel's launches (the search's slot workers launch
+    from several threads, so the increment holds a lock)."""
 
     def __init__(self, name: str):
         """Register a counter under the kernel's ``name``."""
         self.name = name
         self.count = 0
+        self._lock = threading.Lock()
 
     def add(self) -> None:
         """Count one launch."""
-        self.count += 1
+        with self._lock:
+            self.count += 1
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}
@@ -91,10 +95,20 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 def build() -> Dict[str, Tuple[Path, float, str]]:
     """Compile every source whose library is missing, all at once; returns
     ``{name: (library path, build seconds (0.0 when reused), the compiler's
-    register/shared-memory report)}``."""
+    register/shared-memory report)}``.  One build runs at a time in a
+    process (the search's slot workers may launch their first kernel
+    together); a second caller then finds the libraries built."""
+    with _BUILD_LOCK:
+        return _build()
+
+
+def _build() -> Dict[str, Tuple[Path, float, str]]:
     out: Dict[str, Tuple[Path, float, str]] = {}
     procs = {}
     t0 = time.perf_counter()

@@ -105,11 +105,17 @@ def unit_affine_cuda(x: torch.Tensor, w: torch.Tensor,
     """Launch K4.  x shared rows ``[B, din]`` or ``[B, U, din]`` with any
     strides, w ``[U, din, dout]`` with any strides, b ``[U, dout]`` or None,
     all f32 or all bf16 on one CUDA device -> ``[B, U, dout]`` contiguous,
-    in x's dtype.  The dense or per-unit kernel by :func:`route`."""
+    in x's dtype.  The dense or per-unit kernel by :func:`route`; the
+    per-unit kernel takes at most ``MAX_UNITS`` units a launch (its grid's
+    z), so a wider x (a search population stacked along the unit axis)
+    runs as one launch per ``MAX_UNITS`` units."""
     bsz, units, din, dout, xs = _check("unit_affine_cuda", x, w, b)
     dense = route(x) == "dense"
     if not dense and units > MAX_UNITS:
-        raise ValueError(f"unit_affine_cuda: {units} units > {MAX_UNITS}")
+        return torch.cat([unit_affine_cuda(
+            x[:, u:u + MAX_UNITS], w[u:u + MAX_UNITS],
+            None if b is None else b[u:u + MAX_UNITS], activate=activate)
+            for u in range(0, units, MAX_UNITS)], dim=1)
     b = None if b is None else b.contiguous()
     y = torch.empty((bsz, units, dout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:

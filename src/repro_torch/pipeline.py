@@ -380,7 +380,8 @@ class Toolflow:
     default).  A :class:`~repro_torch.stream.cell.StreamCellConfig` routes
     the flow through the sequential paths: truncated BPTT over ``tbptt``
     steps, last-step accuracy and ``compile`` -> ``CompiledStreamCell``.
-    ``search`` is not ported yet and raises ``NotImplementedError``.
+    :meth:`search` runs the hardware-aware assembly search of a registered
+    task.
     """
 
     def __init__(self, cfg, *, pretrain_steps: int = 120,
@@ -389,8 +390,11 @@ class Toolflow:
                  batch_size: int = 256, lasso: float = 1e-4,
                  weight_decay: float = 1e-4, sgdr_t0: int = 100,
                  seed: int = 0, max_train: int = 4096, tbptt: int = 8,
-                 device=None):
-        """Hold the config and hyperparameters; nothing runs yet."""
+                 rolled_training: bool = False, device=None):
+        """Hold the config and hyperparameters; nothing runs yet.
+        ``rolled_training`` trains each phase as the reference's one-program
+        loop (``lut_trainer.train(rolled=True)``: the loss history keeps
+        the final step's); the search promotes survivors this way."""
         # duck-typed, so this module never imports repro_torch.stream at
         # import time (stream.cell imports this module)
         if hasattr(cfg, "net") and hasattr(cfg, "n_state"):
@@ -400,6 +404,7 @@ class Toolflow:
             self.cell = None
         self.cfg = cfg
         self.tbptt = tbptt
+        self.rolled_training = rolled_training and self.cell is None
         self.device = _device.resolve(device)
         self.hyper = dict(pretrain_steps=pretrain_steps,
                           retrain_steps=retrain_steps, lr=lr,
@@ -441,7 +446,8 @@ class Toolflow:
             res = lut_trainer.train_stream(self.cell, data, tbptt=self.tbptt,
                                            **kw)
         else:
-            res = lut_trainer.train(self.cfg, data, **kw)
+            res = lut_trainer.train(self.cfg, data,
+                                    rolled=self.rolled_training, **kw)
         self.data = data
         self.dense_params = res.params
         self._record("pretrain", t0, final_loss=res.losses[-1],
@@ -474,7 +480,8 @@ class Toolflow:
             res = lut_trainer.train_stream(self.cell, data, tbptt=self.tbptt,
                                            **kw)
         else:
-            res = lut_trainer.train(self.cfg, data, **kw)
+            res = lut_trainer.train(self.cfg, data,
+                                    rolled=self.rolled_training, **kw)
         self.data = data
         self.params = res.params
         self._record("retrain", t0, final_loss=res.losses[-1],
@@ -505,10 +512,30 @@ class Toolflow:
         return self.pretrain(data).prune().retrain().compile()
 
     @classmethod
-    def search(cls, task: str, budget=None, *, data=None, mesh=None):
-        """The assembly search belongs to slice 4 of the port."""
-        raise NotImplementedError(
-            "Toolflow.search belongs to slice 4 of the port (ROADMAP A.13)")
+    def search(cls, task: str, budget=None, *, data=None, mesh=None,
+               device=None):
+        """Search the assembly space of a registered task
+        (``configs.paper_tasks.TASKS``).
+
+        Explores fan-in / unit-width / depth / beta / skip-placement
+        variants of the task's base design with stacked short-horizon
+        training (K4 on the card) and successive halving, then fully trains
+        the Pareto survivors through this driver.  Returns a
+        :class:`repro_torch.search.SearchResult` whose ``frontier`` is the
+        ranked accuracy / area-delay-product Pareto frontier; every point
+        carries a deployable :class:`CompiledLUTNetwork`
+        (``point.compiled``).
+
+        ``budget`` is a :class:`repro_torch.search.SearchBudget` (the
+        standard budget by default; ``SearchBudget.smoke()`` for CI-sized
+        runs).  Everything runs on ``device``, CUDA by default (``"cpu"``
+        for the plain path).  ``mesh`` (``launch.mesh.make_serving_mesh``)
+        runs the population slices on its slots with straggler-aware rung
+        promotion and elastic remesh; the slots' devices are used then.
+        """
+        from repro_torch.search import run_search
+        return run_search(task, budget=budget, data=data, mesh=mesh,
+                          device=device)
 
     def accuracy(self, data=None, *, folded: bool = False,
                  max_eval: int = 2048) -> float:

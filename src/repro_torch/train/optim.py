@@ -53,8 +53,16 @@ def adamw_init(params: Sequence[torch.Tensor]) -> AdamWState:
                       v=[None if z is None else z.clone() for z in zeros])
 
 
-def global_norm(tensors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over the float tensors, in float32."""
+def global_norm(tensors: Sequence[Optional[torch.Tensor]], *,
+                population: int = 0) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over the float tensors, in float32; with
+    ``population=P`` one norm per candidate ``[P]``, each tensor's leading
+    axis holding the candidates' blocks in order."""
+    if population:
+        sq = [torch.sum(torch.square(t.to(torch.float32).reshape(
+            population, -1)), dim=1)
+            for t in tensors if t is not None and _is_float(t)]
+        return torch.sqrt(torch.sum(torch.stack(sq), dim=0))
     sq = [torch.sum(torch.square(t.to(torch.float32)))
           for t in tensors if t is not None and _is_float(t)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
@@ -63,15 +71,22 @@ def global_norm(tensors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Sequence[torch.Tensor],
                  grads: Sequence[Optional[torch.Tensor]],
-                 state: AdamWState) -> Tuple[AdamWState, dict]:
+                 state: AdamWState, *,
+                 population: int = 0) -> Tuple[AdamWState, dict]:
     """One AdamW step on ``params`` in place; returns the new state and
-    ``{"grad_norm", "lr"}`` (tensors on the parameters' device)."""
+    ``{"grad_norm", "lr"}`` (tensors on the parameters' device).
+
+    ``population=P`` steps a stacked population (``assemble.
+    stack_population``) as the reference's ``vmap`` of this update does:
+    the gradient is clipped by each candidate's own global norm, never by
+    the group's, so one candidate's gradient does not scale another's.
+    Every candidate steps every time, so one step count serves them all."""
     step = state.step + 1
     grads = [None if not _is_float(p) else
              (torch.zeros_like(p) if g is None else g)
              for p, g in zip(params, grads)]
-    gnorm = global_norm(grads)
-    scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
+    gnorm = global_norm(grads, population=population)
+    scale = torch.ones_like(gnorm)
     if cfg.grad_clip is not None:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -84,7 +99,9 @@ def adamw_update(cfg: AdamWConfig, params: Sequence[torch.Tensor],
     for p, g, m, v in zip(params, grads, state.m, state.v):
         if g is None:
             continue
-        g = g.to(torch.float32) * scale
+        g = g.to(torch.float32)
+        g = (g.reshape(population, -1) * scale[:, None]).view_as(g) \
+            if population else g * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)

@@ -870,3 +870,115 @@ def test_engine_holds_more_blocks_in_flight_than_its_depth(cuda):
         eng.drain()
         np.testing.assert_array_equal(
             np.stack([r.codes for r in reqs]), want, err_msg=backend)
+
+
+def _population(task, cuda, seed=0):
+    from repro_torch.search import SearchBudget, generate_candidates
+    from repro_torch.search import shape_signature
+    from repro_torch.train import lut_trainer
+    cands, _ = generate_candidates(paper_tasks.task_config(task),
+                                   SearchBudget())
+    groups = {}
+    for c in cands:
+        groups.setdefault(shape_signature(c.cfg), []).append(c.cfg)
+    cfgs = max(groups.values(), key=len)
+    seeds = lut_trainer.population_seeds(seed, len(cfgs))
+    return (cfgs, lut_trainer.stack_bounds(cfgs), seeds,
+            lut_trainer.init_population(seeds, cfgs[0], device=cuda))
+
+
+@pytest.mark.parametrize("task", ["nid_reduced", "mnist_reduced", "nid"])
+def test_population_forward_on_card_matches_cpu_one_launch_a_stage(task,
+                                                                   cuda):
+    """A stacked group's forward on the card: each affine stage of the
+    whole group is one per-unit K4 launch, and the logits and refreshed BN
+    statistics equal the CPU's within f32 summation order (1e-5)."""
+    from repro_torch.train import lut_trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfgs, bounds, seeds, pop = _population(task, cuda)
+    cfg = cfgs[0]
+    cpu = lut_trainer.init_population(seeds, cfg, device="cpu")
+    x = _x(cfg, 96, seed=18)
+    stages = sum(cfg.subnet_spec(l).n_affine
+                 + len(cfg.subnet_spec(l).skip_edges())
+                 for l in range(len(cfg.layers)))
+    for training in (False, True):
+        build.reset_counters()
+        with torch.no_grad():
+            got = lut_trainer.population_forward(pop, cfg, bounds, x,
+                                                 training=training)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        assert counts["unit_affine_units"] == stages
+        assert counts["unit_affine_dense"] == 0
+        assert counts["unit_affine_reference"] == 0
+        with torch.no_grad():
+            want = lut_trainer.population_forward(cpu, cfg, bounds, x,
+                                                  training=training)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        for a, b in zip(pop.layers, cpu.layers):
+            torch.testing.assert_close(a.subnet.bn.mean.cpu(),
+                                       b.subnet.bn.mean, rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_population_step_on_card_is_bit_stable(cuda):
+    """The same population step twice from the same init on the card, once
+    on the default stream and once on a side stream, gives the same bits
+    (the search's meshed rungs rely on it)."""
+    from repro_torch.core import assemble
+    from repro_torch.data import synthetic
+    from repro_torch.train import lut_trainer, optim
+    data = synthetic.load("nid", n_train=256, n_test=16)
+    x = torch.from_numpy(data.x_train).to(cuda)
+    y = torch.from_numpy(data.y_train).to(cuda)
+    outs = []
+    for stream in (None, torch.cuda.Stream(device=cuda)):
+        cfgs, bounds, _, pop = _population("nid_reduced", cuda)
+        opt = optim.adamw_init(assemble.leaves(pop))
+        ocfg = optim.AdamWConfig(lr=5e-3, weight_decay=1e-4)
+        with torch.cuda.stream(stream or torch.cuda.current_stream(cuda)):
+            for _ in range(3):
+                opt, loss, _ = lut_trainer.population_step(
+                    pop, cfgs[0], ocfg, opt, bounds, x, y)
+        torch.cuda.synchronize()
+        outs.append([t.detach().clone() for t in assemble.leaves(pop)]
+                    + [loss])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_unit_affine_splits_a_unit_axis_wider_than_the_grid(cuda):
+    """More than MAX_UNITS per-unit units run as one launch per MAX_UNITS
+    units, never on the plain version, and equal it."""
+    gen = torch.Generator().manual_seed(19)
+    u = subnet_mlp.MAX_UNITS + 77
+    x = torch.rand((4, u, 3), generator=gen).to(cuda)
+    w = torch.randn((u, 3, 5), generator=gen).to(cuda)
+    bias = torch.randn((u, 5), generator=gen).to(cuda)
+    build.reset_counters()
+    got = subnet_mlp.unit_affine_cuda(x, w, bias, activate=True)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["unit_affine_units"] == 2
+    torch.testing.assert_close(
+        got, subnet_mlp.unit_affine_plain(x, w, bias, activate=True),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_meshed_rungs_on_two_slots_equal_the_sliced_run(cuda):
+    """``nid_reduced`` rungs over 2 slots on one card (a thread and a
+    stream a slot) pick the sliced sequential run's survivors with the
+    same scores."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.search import (DistributedSearchBudget, SearchBudget,
+                                    run_search)
+    budget = DistributedSearchBudget.from_budget(SearchBudget(
+        n_candidates=12, rungs=(8, 16), promote=0, min_frontier=0,
+        max_promote_extra=0, train_rows=512, eval_rows=256),
+        population_slices=2)
+    sliced = run_search("nid_reduced", budget, device=cuda)
+    meshed = run_search("nid_reduced", budget,
+                        mesh=make_serving_mesh(slots=2, device=cuda))
+    assert meshed.dist["mode"] == "mesh" and not meshed.dist["partial"]
+    assert meshed.rungs == sliced.rungs
+    assert meshed.evaluated == sliced.evaluated

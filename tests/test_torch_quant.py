@@ -140,3 +140,77 @@ def test_address_packing_matches_reference(bits, fan_in):
 def test_quant_spec_levels_match_reference(bits, signed):
     j, t = jquant.QuantSpec(bits, signed), tquant.QuantSpec(bits, signed)
     assert (t.levels, t.qmin, t.qmax) == (j.levels, j.qmin, j.qmax)
+
+
+def test_fake_quant_dynamic_matches_reference_with_candidate_bounds():
+    """Tensor clip bounds broadcast over a candidate axis ``[B, P, W]``
+    (one log-scale and one bit-width a candidate): values, and gradients to
+    x, the log-scales and the bounds, half at the clip ties as
+    ``jnp.clip`` passes them; equal to ``fake_quant`` at a spec's bounds."""
+    rs = np.random.RandomState(21)
+    ls = np.log(np.array([0.5, 0.25, 1.0], np.float32)).astype(np.float32)
+    lo = np.array([-4.0, 0.0, -2.0], np.float32)
+    hi = np.array([3.0, 7.0, 1.0], np.float32)
+    x = rs.uniform(-3, 3, (6, 3, 5)).astype(np.float32)
+    x[0, :, 0] = lo * np.exp(ls)                 # exactly at the bounds
+    x[0, :, 1] = hi * np.exp(ls)
+    cot = rs.normal(size=x.shape).astype(np.float32)
+
+    def f(xx, ll, qlo, qhi):
+        y = jquant.fake_quant_dynamic({"log_scale": ll[:, None]},
+                                      qlo[:, None], qhi[:, None], xx)
+        return jnp.sum(y * cot), y
+
+    (_, want), grads = jax.value_and_grad(f, argnums=(0, 1, 2, 3),
+                                          has_aux=True)(x, ls, lo, hi)
+    t = [torch.tensor(a, requires_grad=True) for a in (x, ls, lo, hi)]
+    y = tquant.fake_quant_dynamic(t[1][:, None], t[2][:, None],
+                                  t[3][:, None], t[0])
+    (y * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-7)
+    for g, w in zip(t, grads):
+        np.testing.assert_allclose(g.grad.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6)
+    spec = tquant.QuantSpec(3, signed=True)
+    q = tquant.Quantizer(torch.tensor(float(ls[0])))
+    xs = torch.from_numpy(x[:, 0])
+    assert torch.equal(
+        tquant.fake_quant_dynamic(q, torch.tensor(-4.0), torch.tensor(3.0),
+                                  xs),
+        tquant.fake_quant(q, spec, xs))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_beta_bounds_pass_their_gradient_through_the_clip(signed):
+    """Bounds from a trainable bit-width: values, and the gradient reaching
+    beta through the saturated entries, as the reference computes them;
+    ``round_beta`` rounds half to even and clips to [1, 8]."""
+    rs = np.random.RandomState(22)
+    beta = np.array([2.3, 3.0, 4.7], np.float32)
+    x = rs.uniform(-40, 40, (7, 3, 4)).astype(np.float32)
+    cot = rs.normal(size=x.shape).astype(np.float32)
+
+    def f(b):
+        lo, hi = jquant.beta_bounds(b, signed)
+        y = jquant.fake_quant_dynamic({"log_scale": jnp.float32(0.0)},
+                                      lo[:, None], hi[:, None], x)
+        return jnp.sum(y * cot), (lo, hi)
+
+    (_, (wlo, whi)), wg = jax.value_and_grad(f, has_aux=True)(beta)
+    tb = torch.tensor(beta, requires_grad=True)
+    lo, hi = tquant.beta_bounds(tb, signed)
+    y = tquant.fake_quant_dynamic(torch.tensor(0.0), lo[:, None],
+                                  hi[:, None], torch.from_numpy(x))
+    (y * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(lo.detach().numpy(), np.asarray(wlo),
+                               rtol=1e-6)
+    np.testing.assert_allclose(hi.detach().numpy(), np.asarray(whi),
+                               rtol=1e-6)
+    assert np.abs(np.asarray(wg)).min() > 0
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(wg), rtol=1e-5)
+    b = np.array([0.2, 0.5, 1.5, 2.5, 4.6, 8.5, 9.3, -3.0])
+    np.testing.assert_array_equal(tquant.round_beta(b), jquant.round_beta(b))
+    np.testing.assert_array_equal(tquant.round_beta(torch.tensor(b)),
+                                  jquant.round_beta(b))
+    assert tquant.round_beta(b).dtype == np.int64

@@ -120,6 +120,39 @@ def test_every_source_is_built_and_a_failed_build_raises(tmp_path,
     assert not list(tmp_path.glob("*.so"))
 
 
+
+def test_concurrent_first_builds_compile_each_source_once(tmp_path,
+                                                          monkeypatch):
+    """Two threads that need a library at once (the search's slot workers
+    launching their first kernels together) share one build: the compiler
+    runs once a source, and both get the same library."""
+    import threading
+    log = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!/bin/sh\necho x >> {log}\nsleep 0.3\n"
+                    'while [ "$1" != "-o" ]; do shift; done\n: > "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "SOURCES",
+                        {"subnet_mlp": build.SOURCES["subnet_mlp"]})
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    gate = threading.Barrier(2)
+    out = [None, None]
+
+    def first_use(i):
+        gate.wait()
+        out[i] = build.build()["subnet_mlp"][0]
+
+    threads = [threading.Thread(target=first_use, args=(i,))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert log.read_text().count("x") == 1
+    assert out[0] == out[1] and out[0].is_file()
+    assert not list((tmp_path / "build").glob("*.tmp.so"))
+
 def _c_entry_points(text):
     """{name: ctypes argtypes} of the ``extern "C"`` functions of a CUDA
     source, read from their declarations."""

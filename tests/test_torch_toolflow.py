@@ -149,8 +149,9 @@ def test_unported_branches_raise():
     assert flow.cell is not None and flow.cfg is cfg
     with pytest.raises(NotImplementedError, match="A.14c"):
         tpaper_tasks.stream_task_data("rwkv_mix_reduced")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tpipeline.Toolflow.search("nid_reduced")
+    # the search is ported since slice 10: an unknown task is refused
+    with pytest.raises(ValueError, match="unknown task"):
+        tpipeline.Toolflow.search("nope", device="cpu")
     with pytest.raises(RuntimeError, match="pretrain"):
         tpipeline.Toolflow(cfg, device="cpu").prune()
 

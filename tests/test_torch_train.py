@@ -385,6 +385,9 @@ def test_losses_and_gradients_match_reference():
 
 
 def test_trainer_runs_and_refuses_rolled_training():
+    """The trainer runs, and rolled training (no longer refused since the
+    search slice) gives the unrolled loop's final parameters bit for bit
+    on one thread, with the history collapsed to the final loss."""
     cfg = _tcfg(jtasks.reduced("jsc"))
     data = tsynthetic.load("jsc_openml", n_train=512, n_test=256)
     res = ttrainer.train(cfg, data, steps=5, batch_size=128, device="cpu")
@@ -392,8 +395,22 @@ def test_trainer_runs_and_refuses_rolled_training():
     acc = ttrainer.accuracy(cfg, res.params, data, max_eval=256)
     assert acc == ttrainer.accuracy(cfg, res.params, data, folded=True,
                                     max_eval=256)
-    with pytest.raises(NotImplementedError, match="search"):
-        ttrainer.train(cfg, data, steps=1, rolled=True, device="cpu")
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for kw in (dict(dense=True, lasso=1e-4), dict(sgdr_t0=3)):
+            unrolled = ttrainer.train(cfg, data, steps=7, batch_size=100,
+                                      device="cpu", **kw)
+            rolled = ttrainer.train(cfg, data, steps=7, batch_size=100,
+                                    rolled=True, device="cpu", **kw)
+            assert rolled.losses == unrolled.losses[-1:]
+            for a, b in zip(tassemble.leaves(rolled.params),
+                            tassemble.leaves(unrolled.params)):
+                assert torch.equal(a, b)
+    finally:
+        torch.set_num_threads(before)
+    assert ttrainer.train(cfg, data, steps=0, rolled=True,
+                          device="cpu").losses == [0.0]
 
 
 def test_dense_mlp_reference_learns_nid():
@@ -401,3 +418,27 @@ def test_dense_mlp_reference_learns_nid():
     acc = ttrainer.dense_mlp_reference(data, [32], steps=120, device="cpu")
     want = jtrainer.dense_mlp_reference(data, [32], steps=120)
     assert acc > 0.7 and abs(acc - want) < 0.05, (acc, want)
+
+
+def test_toolflow_rolled_training_gives_the_unrolled_flow():
+    """``Toolflow(rolled_training=True)`` (how the search promotes) folds
+    the same tables as the unrolled flow on one thread; its stages record
+    the final losses."""
+    cfg = _tcfg(jtasks.reduced("jsc"))
+    data = tsynthetic.load("jsc_openml", n_train=512, n_test=256)
+    kw = dict(pretrain_steps=4, retrain_steps=5, batch_size=100,
+              device="cpu")
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        flows = [tpipeline.Toolflow(cfg, rolled_training=r, **kw)
+                 for r in (False, True)]
+        comps = [f.run(data) for f in flows]
+    finally:
+        torch.set_num_threads(before)
+    assert flows[1].rolled_training and not flows[0].rolled_training
+    for a, b in zip(comps[0].tables, comps[1].tables):
+        np.testing.assert_array_equal(a, b)
+    for stage in ("pretrain", "retrain"):
+        assert (flows[0].stages[stage].metrics["final_loss"]
+                == flows[1].stages[stage].metrics["final_loss"])
