@@ -48,15 +48,28 @@ shapes, and drives both main paths:
   budget with every frontier artifact served on ``take``, ``fused`` (K1)
   and ``pallas`` (K3) against a CPU load, and ``nid_reduced``'s rungs over
   2 device slots against the sequential run, with a straggling and a lost
-  slot.
+  slot;
+* the remaining LM families (slice 11): hymba-1.5b (32 layers) and
+  rwkv6-7b (32 layers) at full width and depth, mixtral-8x22b cut to 2
+  layers and dbrx-132b to 1 (memory), each served on four slots through
+  ``ServeEngine`` with K5's wgmma kernel in every attention prefill and
+  decode against prefill; a folded 4,104-wide stream cell in the WKV slot
+  of an rwkv6-7b block (1,024 streams x 49 steps on ``fused``, K1, and
+  ``pallas``, K3) against the offline scan on the card and the CPU; the
+  ``rwkv_mix_reduced`` trunk on the card against the CPU; whisper-small
+  (12 + 12 layers, 1,536 frames) encoded, prefilled and decoded with K5
+  non-causal, causal and cross at Sq = 1; a 2-layer f32 cut of each family
+  (K5's TF32 kernel) against the CPU; every K5 layout the paths launched
+  held against the plain version, and K5 alone at each new layout beside
+  SDPA.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
 is timed.  Any failed phase exits nonzero.  The last three lines of
 standard output are a JSON object with every kernel's launches, error and
 times, the card's ``name, power.limit``, then ``{"ok": true, "device":
-{...}}``; a ``{"fleet": ...}`` and a ``{"search": ...}`` line come
-before them.  A full report goes
+{...}}``; a ``{"fleet": ...}``, a ``{"search": ...}`` and an
+``{"lm_families": ...}`` line come before them.  A full report goes
 to ``build/chip_smoke/report.json``.
 Imports nothing of JAX.
 """
@@ -1324,15 +1337,16 @@ def state_sensitivity(cpu, xs, want) -> dict:
     return out
 
 
-def stream_kernels(card, rs, dev, smi: str) -> list:
-    """K1 on one block of the cell (256 rows) and K3 per launch (the mean
-    of the cell's 4 layers at 256 rows), each held against its plain
+def stream_kernels(card, rs, dev, smi: str, b: int = STREAM_BLOCK,
+                   path: str = "seqmnist/stream",
+                   task: str = "seqmnist_reduced cell") -> list:
+    """K1 on one block of the cell (``b`` rows) and K3 per launch (the mean
+    of the cell's layers at ``b`` rows), each held against its plain
     version at the block and at ragged batches; returns their rows for the
     kernel table (launches filled in by the caller)."""
     import torch
     from repro_torch.kernels import lut_cascade, lut_gather
 
-    b = STREAM_BLOCK
     plan = card.net.compile_backend("fused").plan
     layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
     tables = plan.tensor("tables", dev)
@@ -1394,13 +1408,12 @@ def stream_kernels(card, rs, dev, smi: str) -> list:
             lib_dev_ms = traced_all_ms(lib)[0]
             lib_dev_ms = None if lib_dev_ms is None else lib_dev_ms / per
         bound_ms, bound_by = bound(nbytes // per, n_ops if per == 1 else 0)
-        rows.append({"name": name, "path": "seqmnist/stream",
-                     "task": "seqmnist_reduced cell", "batch": b,
+        rows.append({"name": name, "path": path, "task": task, "batch": b,
                      "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "max_abs_err": err1 if per == 1 else err3})
-        print(f"time {name} (seqmnist_reduced cell, batch {b}, per launch): "
+        print(f"time {name} ({task}, batch {b}, per launch): "
               f"kernel {ms:.4f} ms (device {device_ms} ms), plain "
               f"{plain_ms:.4f} ms, library {lib_ms} ms (device {lib_dev_ms}"
               f" ms), bound {bound_ms:.6f} ms ({bound_by})"
@@ -2692,6 +2705,687 @@ def search_phase(dev, smi: str, seed: int, art_dir: Path) -> dict:
     return out
 
 
+FAMILY_SLOTS = 4             # decode rows of every family's ServeEngine
+FAMILY_CONTEXT = 2048        # ring positions (hymba's window caps its ring)
+FAMILY_NEW_TOKENS = 8        # tokens each served request generates
+HYMBA_PROMPTS = (1100, 700, 300, 33)   # the first passes the 1024 window
+MOE_PROMPTS = (600, 130, 33, 7)
+RWKV_PROMPTS = (700, 300, 64, 5)
+MIXTRAL_LAYERS = 2           # of 56: the experts are 4.8 GB a layer in bf16
+DBRX_LAYERS = 1              # of 40: 6.3 GB of experts a layer in bf16
+WHISPER_BATCH = 3            # rows decoded in lock step
+WHISPER_PROMPT = 32
+WHISPER_NEW_TOKENS = 16
+WHISPER_CONTEXT = 64
+LUT_TM_STREAMS = 1024        # streams of the LUT time mix
+LUT_TM_STEPS = 49
+LUT_TM_STATE = 8             # state positions of the cell
+FAMILY_F32_PROMPT = 48       # tokens of each family's f32 cut
+FAMILY_F32_TOL = 2e-4        # tests/test_archs.py:123, rtol = atol
+# rwkv_mix_reduced's trunk, card vs CPU: its per-head group norm (E[x^2] -
+# mu^2 over 8 channels) cancels at early steps, so f32 rounding grows: the
+# CPU's own f32 features are up to 4.1e-4 from f64 (mean 1.8e-7) on these
+# 2,048 train streams; atol 1e-3, rtol 1e-5
+TASK_DATA_ATOL = 1e-3
+TASK_DATA_RTOL = 1e-5
+
+
+class K5Recorder:
+    """While on, counts K5's launches on the card by operand layout and
+    keeps the operands of the first launch of each layout.  It wraps
+    ``flash_attention._launch_wgmma`` and ``_launch_tf32``, which every K5
+    call goes through; the wrapped calls launch and count as before, the
+    recorder itself launches nothing."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.counts: dict = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self._orig = wgmma, tf32 = fa._launch_wgmma, fa._launch_tf32
+
+        def rec_wgmma(q, k, v, causal, window, q_offset, split_p):
+            o = wgmma(q, k, v, causal, window, q_offset, split_p)
+            self._keep(fa.WGMMA, q, k, v, causal, window, q_offset)
+            return o
+
+        def rec_tf32(q, k, v, causal, window, q_offset):
+            o = tf32(q, k, v, causal, window, q_offset)
+            self._keep(fa.TF32, q, k, v, causal, window, q_offset)
+            return o
+
+        fa._launch_wgmma, fa._launch_tf32 = rec_wgmma, rec_tf32
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as fa
+        fa._launch_wgmma, fa._launch_tf32 = self._orig
+
+    def _keep(self, kernel, q, k, v, causal, window, q_offset) -> None:
+        key = (kernel, tuple(q.shape), int(k.shape[1]), int(k.shape[2]),
+               bool(causal), window, int(q_offset))
+        self.counts[key] = self.counts.get(key, 0) + 1
+        if key not in self.calls:
+            self.calls[key] = (_snapshot(q), _snapshot(k), _snapshot(v),
+                               dict(causal=causal, window=window,
+                                    q_offset=q_offset))
+
+    def launches(self) -> int:
+        """Launches recorded."""
+        return sum(self.counts.values())
+
+
+def _k5_label(key) -> str:
+    kernel, (b, hq, sq, d), hkv, skv, causal, window, q_offset = key
+    return (f"{'wgmma' if kernel.endswith('wgmma') else 'TF32'} [{b}, {hq}, "
+            f"{sq}, {d}] on [{hkv}, {skv}] {'causal' if causal else 'full'}"
+            + (f" window {window}" if window else "")
+            + (f" q_offset {q_offset}" if q_offset else ""))
+
+
+def hold_k5_record(rec: K5Recorder, label: str) -> dict:
+    """Every layout ``rec`` kept, launched again on its recorded operands
+    and held against the plain version: bf16 (the wgmma kernel) within one
+    bf16 ulp, f32 (the TF32 kernel) at the reference's 2e-5.  Returns
+    {kernel: max |diff|} and the layouts with their launch counts."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    errs = {fa.WGMMA: 0.0, fa.TF32: 0.0}
+    for key, (q, k, v, kw) in rec.calls.items():
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        if key[0] == fa.WGMMA:
+            ok = torch.allclose(got.float(), want.float(), rtol=K5_BF16_RTOL,
+                                atol=K5_BF16_ATOL)
+        else:
+            ok = torch.allclose(got, want, rtol=K5_F32_TOL, atol=K5_F32_TOL)
+        if not ok:
+            fail(f"K5 at {label}'s layout {_k5_label(key)}: max |diff| {err}")
+        errs[key[0]] = max(errs[key[0]], err)
+    return {"max_abs_err": errs,
+            "layouts": {_k5_label(key): n for key, n in rec.counts.items()}}
+
+
+def _k5_pairs(sq: int, skv: int, causal: bool, window, q_offset: int) -> int:
+    """(q, k) pairs K5's masks leave for these positions."""
+    total = 0
+    for i in range(sq):
+        p = q_offset + i
+        hi = min(p, skv - 1) if causal else skv - 1
+        lo = max(0, p - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def k5_layout_row(name: str, path: str, rec: K5Recorder, key, smi: str
+                  ) -> dict:
+    """K5's wgmma kernel alone at one layout the path launched (its
+    recorded operands): ms by CUDA events, device ms from the profiler,
+    the plain version, one SDPA call on the same inputs (a boolean mask
+    for a window) and the bound (operations: 4 D flops a head for every
+    (q, k) pair the masks leave, at the bf16 tensor-core rate; bytes: q,
+    k, v read once, o written once)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, kw = rec.calls[key]
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    fn = lambda: fa.flash_attention_wgmma_cuda(q, k, v, **kw)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(q, k, v, **kw)  # noqa: E731
+    err = float((fn().float() - plain().float()).abs().max())
+    if kw["window"]:
+        qpos = torch.arange(sq, device=q.device)[:, None] + kw["q_offset"]
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask = (kpos > qpos - kw["window"]) & (
+            (kpos <= qpos) if kw["causal"] else True)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    else:
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=kw["causal"] and sq > 1, enable_gqa=True)
+    pairs = _k5_pairs(sq, skv, kw["causal"], kw["window"], kw["q_offset"])
+    ops = 4 * d * hq * b * pairs
+    byts = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    row = {"name": fa.WGMMA, "path": path, "task": name,
+           "layout": _k5_label(key), "batch": sq,
+           "launches": rec.counts[key], "max_abs_err": err,
+           "ms": per_call_ms(fn),
+           "device_ms": traced_ms(fn, "flash_attention_wgmma_kernel"),
+           "plain_ms": per_call_ms(plain), "library_ms": per_call_ms(sdpa),
+           "library_device_ms": traced_all_ms(sdpa)[0]}
+    row["bound_ms"], row["bound_by"] = bound(byts, ops, BF16_FLOPS_PER_S)
+    print(f"time {fa.WGMMA} ({name}, {row['layout']}): kernel "
+          f"{row['ms']:.4f} ms (device {row['device_ms']} ms), plain "
+          f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms (device "
+          f"{row['library_device_ms']} ms), bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}), {row['launches']} launches on {path}, max "
+          f"|diff| {err:.3e} [{smi}]", flush=True)
+    return row
+
+
+def _largest(rec: K5Recorder, causal: bool, sq_max=None):
+    """The recorded wgmma layout with the most q rows (at most ``sq_max``)
+    among causal or non-causal ones."""
+    keys = [k for k in rec.calls if k[0] == "flash_attention_wgmma"
+            and k[4] == causal and (sq_max is None or k[1][2] <= sq_max)]
+    return max(keys, key=lambda k: (k[1][2], k[1][0]))
+
+
+def serve_family(cfg, params, prompts, seed: int, smi: str, label: str,
+                 k5_per_prefill: int) -> dict:
+    """``prompts`` served on ``FAMILY_SLOTS`` slots through ``ServeEngine``
+    (``FAMILY_NEW_TOKENS`` each) with the launch counts set to 0 just
+    before; fails unless K5's wgmma kernel launched ``k5_per_prefill``
+    times a prefill and never in decode, its TF32 kernel never, every
+    request got its tokens in range and every logit was finite.  Returns
+    the serving numbers and the K5 recorder of the run."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = params.embed.device
+    ServeEngine(cfg, params, slots=FAMILY_SLOTS, context=FAMILY_CONTEXT,
+                device=dev).run([Request(rid=-1, prompt=np.arange(
+                    40, dtype=np.int32), max_tokens=3)])   # warm-up
+    rs = np.random.RandomState(seed)
+    reqs = [Request(rid=i, prompt=rs.randint(0, cfg.vocab, n).astype(np.int32),
+                    max_tokens=FAMILY_NEW_TOKENS)
+            for i, n in enumerate(prompts)]
+    eng = ServeEngine(cfg, params, slots=FAMILY_SLOTS, context=FAMILY_CONTEXT,
+                      device=dev, rng_seed=seed)
+    finite = []
+    sample = eng._sample
+
+    def checked_sample(logits, req):
+        finite.append(bool(np.isfinite(logits).all()))
+        return sample(logits, req)
+
+    eng._sample = checked_sample
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    with K5Recorder() as rec:
+        done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    k5 = counts.get("flash_attention_wgmma", 0)
+    want = k5_per_prefill * len(prompts)
+    if k5 != want or counts.get("flash_attention", 0) or \
+            rec.launches() != k5:
+        fail(f"{label} serve: K5's wgmma kernel launched {k5} times, not "
+             f"{want} ({k5_per_prefill} a prefill, none in decode), its TF32 "
+             f"kernel {counts.get('flash_attention', 0)} times, not 0")
+    if len(done) != len(reqs) or any(
+            len(r.out_tokens) != FAMILY_NEW_TOKENS
+            or not all(0 <= t < cfg.vocab for t in r.out_tokens)
+            for r in done):
+        fail(f"{label} serve: a request did not finish with "
+             f"{FAMILY_NEW_TOKENS} tokens in range")
+    if not all(finite) or len(finite) != eng.stats.tokens_out + len(reqs):
+        fail(f"{label} serve: non-finite logits")
+    st = eng.stats
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "slots": FAMILY_SLOTS,
+           "context": FAMILY_CONTEXT, "prompts": list(prompts),
+           "new_tokens": FAMILY_NEW_TOKENS, "launches": counts,
+           "k5_launches": k5, "wall_s": wall,
+           "prefill_ms": dict(zip(prompts, st.prefill_ms)),
+           "decode_ticks": st.decode_steps,
+           "decode_ms_median": statistics.median(st.decode_ms),
+           "tokens_per_s": (st.tokens_out + len(reqs)) / wall,
+           "tokens": {r.rid: r.out_tokens for r in done}}
+    print(f"{label} serve: {len(prompts)} requests on {FAMILY_SLOTS} slots "
+          f"in {wall:.3f} s, K5 (wgmma) launches {k5}, prefill ms by prompt "
+          f"length { {n: round(ms, 2) for n, ms in out['prefill_ms'].items()} },"
+          f" {st.decode_steps} decode ticks, median "
+          f"{out['decode_ms_median']:.2f} ms/tick, {out['tokens_per_s']:.1f} "
+          f"tokens/s [{smi}]", flush=True)
+    return out, rec
+
+
+def decode_vs_prefill_bf16(fns, cfg, prompt, n: int, label: str) -> dict:
+    """Decode of token n after a prefill of n against a prefill of n + 1,
+    in bf16 on the card: a sanity bound (``DECODE_VS_PREFILL_REL`` of the
+    largest logit; the two paths accumulate in other orders) and the same
+    argmax in every row, or, where a row's two argmaxes differ, a tie at
+    the precision the two paths share: the prefill's logits of both tokens
+    within the max |diff| of each other (whisper's 51,865 random logits
+    have such near ties).  ``fns = (prefill(tokens), decode(cache,
+    token))``."""
+    import torch
+    prefill, decode = fns
+    full, _ = prefill(prompt[:, :n + 1])
+    _, cache = prefill(prompt[:, :n])
+    dec, _ = decode(cache, prompt[:, n:n + 1])
+    full, dec = full[:, :cfg.vocab], dec[:, :cfg.vocab]
+    err = float((dec - full).abs().max())
+    scale = float(full.abs().max())
+    top_full, top_dec = full.argmax(-1), dec.argmax(-1)
+    argmax = bool(torch.equal(top_dec, top_full))
+    gap = float((full.max(-1).values
+                 - full.gather(-1, top_dec[:, None])[:, 0]).max())
+    print(f"{label} decode vs prefill (bf16, n = {n}): max |diff| {err:.4f} "
+          f"of max |logit| {scale:.4f} (limit {DECODE_VS_PREFILL_REL} of "
+          f"it), argmax equal {argmax} (the prefill's logit gap between "
+          f"the two argmaxes {gap:.4f})", flush=True)
+    if not err <= DECODE_VS_PREFILL_REL * scale or not gap <= err:
+        fail(f"{label} decode vs prefill: max |diff| {err} of {scale}, "
+             f"argmax equal {argmax}, logit gap {gap}")
+    return {"n": n, "max_abs_diff": err, "max_abs_logit": scale,
+            "argmax_equal": argmax, "argmax_logit_gap": gap}
+
+
+def family_f32_cut(cfg, dev, seed: int, label: str,
+                   k5_per_prefill: int) -> dict:
+    """``cfg`` at full width cut to 2 layers in f32 (MoE at capacity factor
+    64 for decode vs prefill, where a prefill would otherwise drop tokens
+    that decode keeps): the prefill logits on the card against the CPU,
+    decode against prefill on the card, both at the reference's 2e-4, and
+    K5's TF32 kernel ``k5_per_prefill`` times a prefill."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import lm, whisper
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc = cfg.is_enc_dec
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               encoder_layers=2 if enc else 0)
+    mod = whisper if enc else lm
+    gen = torch.Generator(dev).manual_seed(seed)
+    card = mod.init_params(cfg2, gen, dev)
+    cpu = mod.compute_copy(card, cfg2, "cpu")
+    rs = np.random.RandomState(seed + 11)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab, (1, FAMILY_F32_PROMPT))
+                            .astype(np.int32))
+    if enc:
+        audio = torch.from_numpy(rs.standard_normal(
+            (1, cfg.enc_context, cfg.d_model)).astype(np.float32))
+
+        def prefill(m, c, t):
+            return whisper.prefill(m, c, audio.to(t.device), t,
+                                   WHISPER_CONTEXT)
+
+        def decode(m, c, cache, t):
+            return whisper.decode_step(m, c, cache, t)
+    else:
+        def prefill(m, c, t):
+            return lm.prefill(m, c, t, FAMILY_CONTEXT)
+
+        def decode(m, c, cache, t):
+            return lm.decode_step(m, c, cache, t)
+    build.reset_counters()
+    got, _ = prefill(card, cfg2, toks.to(dev))
+    torch.cuda.synchronize()
+    tf32 = build.launch_counts().get("flash_attention", 0)
+    if tf32 != k5_per_prefill:
+        fail(f"{label} f32 cut: K5's TF32 kernel launched {tf32} times, not "
+             f"{k5_per_prefill}")
+    want, _ = prefill(cpu, cfg2, toks)
+    err = float((got.cpu() - want).abs().max())
+    if not torch.allclose(got.cpu(), want, rtol=FAMILY_F32_TOL,
+                          atol=FAMILY_F32_TOL):
+        fail(f"{label} (2 layers, f32) card vs CPU: max |diff| {err}")
+    cfg3 = dataclasses.replace(cfg2, capacity_factor=64.0) \
+        if cfg.family == "moe" else cfg2
+    n = FAMILY_F32_PROMPT - 1
+    full, _ = prefill(card, cfg3, toks.to(dev))
+    _, cache = prefill(card, cfg3, toks[:, :n].to(dev))
+    dec, _ = decode(card, cfg3, cache, toks[:, n:].to(dev))
+    dec_err = float((dec - full).abs().max())
+    if not torch.allclose(dec, full, rtol=FAMILY_F32_TOL,
+                          atol=FAMILY_F32_TOL):
+        fail(f"{label} (2 layers, f32) decode vs prefill: max |diff| "
+             f"{dec_err}")
+    out = {"layers": 2, "prompt": FAMILY_F32_PROMPT, "k5_tf32_launches": tf32,
+           "card_vs_cpu_max_abs_diff": err,
+           "decode_vs_prefill_max_abs_diff": dec_err,
+           "max_abs_logit": float(want[:, :cfg.vocab].abs().max())}
+    print(f"{label} (2 layers, f32): card vs CPU prefill logits max |diff| "
+          f"{err:.3e}, decode vs prefill on the card {dec_err:.3e} "
+          f"(tolerance rtol = atol = {FAMILY_F32_TOL}), K5 TF32 launches "
+          f"{tf32}", flush=True)
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_model(cfg, dev, seed: int):
+    """Random weights drawn on the card in f32 a layer at a time and kept
+    in bf16 (``lm.init_params(dtype=...)``); peak memory reset before."""
+    import gc
+    import torch
+    from repro_torch.models import lm
+    gc.collect()                 # the engines' sampler closures are cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev,
+                           dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def serve_lm_family(arch: str, dev, seed: int, smi: str, *, layers=None,
+                    prompts, dvp_n: int) -> tuple:
+    """One decoder-only family at full width (depth ``layers`` if cut):
+    served through ``ServeEngine``, decode against prefill in bf16, peak
+    memory; returns (report, K5 recorder)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.models import lm
+
+    cfg = lm_archs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model, init_s = _bf16_model(cfg, dev, seed)
+    k5 = 0 if cfg.family == "ssm" else cfg.n_layers
+    out, rec = serve_family(cfg, model, prompts, seed, smi, arch, k5)
+    out["init_s"] = init_s
+    out["reduced"] = None if layers is None else \
+        f"{layers} of {lm_archs.get(arch).n_layers} layers"
+    dvp_cfg = dataclasses.replace(cfg, capacity_factor=64.0) \
+        if cfg.family == "moe" else cfg
+    prompt = torch.from_numpy(np.random.RandomState(seed + 3).randint(
+        0, cfg.vocab, (1, dvp_n + 1)).astype(np.int32)).to(model.embed.device)
+    out["decode_vs_prefill"] = decode_vs_prefill_bf16(
+        (lambda t: lm.prefill(model, dvp_cfg, t, FAMILY_CONTEXT),
+         lambda c, t: lm.decode_step(model, dvp_cfg, c, t)),
+        cfg, prompt, dvp_n, arch)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"{arch}: {cfg.n_layers} layers at full width, bf16, init "
+          f"{init_s:.1f} s, peak memory {out['peak_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    return out, rec, model, cfg
+
+
+def lut_time_mix(model, cfg, seed: int, smi: str) -> dict:
+    """The LUT time mix at rwkv6-7b's width: a folded stream cell from
+    random tables (``random_network``) with n_in = n_out = d_model and
+    ``LUT_TM_STATE`` state positions takes the WKV slot of layer 0 for
+    ``LUT_TM_STREAMS`` streams x ``LUT_TM_STEPS`` steps through
+    ``rwkv_block_lut_tm``, the cell stepping through
+    ``CompiledStreamCell.step`` on ``fused`` (K1, once a step) and
+    ``pallas`` (K3, once a layer a step), launch counts set to 0 just
+    before each; every stream's codes and final state equal the offline
+    ``predict_sequence`` of the same pre-LN features on the card and the
+    CPU.  Returns the numbers, with K1/K3 rows at the cell's shape."""
+    import numpy as np
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.core.assemble import AssembleConfig, LayerSpec
+    from repro_torch.kernels import build
+    from repro_torch.models import layers, lm, rwkv
+    from repro_torch.stream.cell import CompiledStreamCell
+
+    dev = model.embed.device
+    d, s = cfg.d_model, LUT_TM_STATE
+    # one mapping layer of 2-input LUTs over [features | state], then a
+    # per-unit assemble layer: K1 holds it (229,920 B at 4 rows a tile)
+    ccfg = AssembleConfig(in_features=d + s, input_bits=1, input_signed=True,
+                          layers=(LayerSpec(d + s, 2, 1, False),
+                                  LayerSpec(d + s, 1, 2, True)),
+                          subnet_width=8, subnet_depth=2, skip_step=2)
+    arrays = random_network(ccfg, seed)
+    card = CompiledStreamCell(pipeline.CompiledLUTNetwork(ccfg, *arrays,
+                                                          device=dev), d, s)
+    cpu = CompiledStreamCell(pipeline.CompiledLUTNetwork(ccfg, *arrays,
+                                                         device="cpu"), d, s)
+    blk, spec = model.blocks[0], lm.rwkv_spec(cfg)
+    gen = torch.Generator(dev).manual_seed(seed)
+    n, t = LUT_TM_STREAMS, LUT_TM_STEPS
+    x = torch.randn((n, t, d), generator=gen, device=dev).to(torch.bfloat16)
+    shift = torch.zeros((n, d), dtype=torch.bfloat16, device=dev)
+    with torch.inference_mode():
+        h1 = layers.layer_norm(x, blk.ln1, blk.ln1_b)
+    want, _, want_s = card.predict_sequence(h1, backend="take")
+    cpu_codes, _, cpu_s = cpu.predict_sequence(h1.cpu(), backend="take")
+    if not (torch.equal(want.cpu(), cpu_codes)
+            and torch.equal(want_s.cpu(), cpu_s)):
+        fail("LUT time mix: the card's offline take scan differs from the "
+             "CPU's")
+    out = {"d_model": d, "n_state": s, "streams": n, "steps": t,
+           "cell_layers": [(l.units, l.fan_in, l.bits, l.assemble)
+                           for l in ccfg.layers]}
+    for backend, kname, per_step in (("fused", "lut_cascade_resident", 1),
+                                     ("pallas", "lut_lookup", 2)):
+        codes = []
+
+        def step(x_t, st, backend=backend):
+            c, y, s_next = card.step(x_t, st, backend=backend)
+            codes.append(c)
+            return y, s_next
+
+        # warm-up at the full batch (its plan, first launch), not counted
+        card.step(h1[:, 0], card.init_state_codes(n), backend=backend)
+        torch.cuda.synchronize()
+        build.reset_counters()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            y, s_fin, new_cm = rwkv.rwkv_block_lut_tm(
+                blk, spec, x, shift, step, card.init_state_codes(n))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = build.launch_counts()
+        other = {k: v for k, v in counts.items() if k.startswith("lut_")
+                 and k != kname}
+        if counts.get(kname, 0) != per_step * t or any(other.values()):
+            fail(f"LUT time mix/{backend}: launches {counts}, expected "
+                 f"{kname} {per_step} x {t} steps and no other LUT kernel")
+        got = torch.stack(codes, dim=1)
+        if not (torch.equal(got, want) and torch.equal(s_fin, want_s)):
+            fail(f"LUT time mix/{backend}: a stream's codes differ from the "
+                 "offline scan of its pre-LN features")
+        if y.shape != x.shape or not bool(torch.isfinite(y).all()) or \
+                new_cm.shape != (n, d):
+            fail(f"LUT time mix/{backend}: block output {tuple(y.shape)} "
+                 "not finite or misshaped")
+        out[backend] = {"launches": counts, "wall_s": wall,
+                        "stream_steps_per_s": n * t / wall}
+        print(f"LUT time mix/{backend} (rwkv6-7b layer 0, d_model {d}): "
+              f"{n} streams x {t} steps in {wall:.3f} s "
+              f"({n * t / wall:,.0f} stream steps/s), launches {counts}, "
+              f"every stream == the offline scan on the card and the CPU "
+              f"[{smi}]", flush=True)
+    out["kernels"] = stream_kernels(card, np.random.RandomState(seed + 11),
+                                    dev, smi, b=n, path="rwkv6-7b/lut-tm",
+                                    task="rwkv6-7b LUT time-mix cell")
+    for k in out["kernels"]:
+        k["launches"] = out["fused" if k["name"] == "lut_cascade_resident"
+                            else "pallas"]["launches"][k["name"]]
+    return out
+
+
+def rwkv_task_data(dev, smi: str) -> dict:
+    """``stream_task_data("rwkv_mix_reduced")`` with its trunk on the card
+    against the same on the CPU (f32, ``TASK_DATA_TOL``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import paper_tasks
+
+    t0 = time.perf_counter()
+    card = paper_tasks.stream_task_data("rwkv_mix_reduced", device=dev)
+    t1 = time.perf_counter()
+    cpu = paper_tasks.stream_task_data("rwkv_mix_reduced", device="cpu")
+    diff = np.concatenate([np.abs(card.x_train - cpu.x_train).ravel(),
+                           np.abs(card.x_test - cpu.x_test).ravel()])
+    err, mean = float(diff.max()), float(diff.mean())
+    if card.name != cpu.name or card.x_train.shape != cpu.x_train.shape or \
+            not (np.allclose(card.x_train, cpu.x_train, rtol=TASK_DATA_RTOL,
+                             atol=TASK_DATA_ATOL)
+                 and np.allclose(card.x_test, cpu.x_test,
+                                 rtol=TASK_DATA_RTOL, atol=TASK_DATA_ATOL)):
+        fail(f"rwkv_mix_reduced: the card's trunk features differ from the "
+             f"CPU's by {err}")
+    print(f"rwkv_mix_reduced task data: {card.x_train.shape} train streams, "
+          f"trunk on the card {t1 - t0:.2f} s, card vs CPU max |diff| "
+          f"{err:.3e}, mean {mean:.3e} (atol {TASK_DATA_ATOL}, rtol "
+          f"{TASK_DATA_RTOL}) [{smi}]", flush=True)
+    return {"shape": list(card.x_train.shape), "max_abs_diff": err,
+            "mean_abs_diff": mean, "card_s": t1 - t0}
+
+
+def serve_whisper(dev, seed: int, smi: str) -> tuple:
+    """whisper-small at full width and depth (12 + 12 layers, bf16):
+    ``WHISPER_BATCH`` rows of random frame embeddings (1,536 frames)
+    encoded, ``WHISPER_PROMPT``-token prompts prefilled and
+    ``WHISPER_NEW_TOKENS`` tokens decoded greedily in lock step, the
+    launch counts set to 0 just before; fails unless K5's wgmma kernel
+    launched 12 non-causal (encoder) + 12 causal + 12 cross a prefill and
+    12 cross a decode tick, the TF32 kernel never, and every logit is
+    finite; then decode against prefill."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.kernels import build
+    from repro_torch.models import whisper
+
+    cfg = lm_archs.get("whisper-small")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = whisper.compute_copy(whisper.init_params(
+        cfg, torch.Generator(dev).manual_seed(seed), dev), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    b, p = WHISPER_BATCH, WHISPER_PROMPT
+    audio = torch.randn((b, cfg.enc_context, cfg.d_model), generator=gen,
+                        device=dev)
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab, (b, p + 1)).astype(np.int32)).to(dev)
+    whisper.prefill(params, cfg, audio[:1], toks[:1, :4], WHISPER_CONTEXT)
+    torch.cuda.synchronize()                      # warm-up, not counted
+    build.reset_counters()
+    t0 = time.perf_counter()
+    with K5Recorder() as rec:
+        logits, cache = whisper.prefill(params, cfg, audio, toks[:, :p],
+                                        WHISPER_CONTEXT)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        after_prefill = build.launch_counts().get("flash_attention_wgmma", 0)
+        out_tokens, finite = [], [bool(torch.isfinite(logits).all())]
+        tok = logits[:, :cfg.vocab].argmax(-1)
+        for _ in range(WHISPER_NEW_TOKENS):
+            out_tokens.append(tok)
+            logits, cache = whisper.decode_step(params, cfg, cache,
+                                                tok[:, None].int())
+            finite.append(bool(torch.isfinite(logits).all()))
+            tok = logits[:, :cfg.vocab].argmax(-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    L, Le = cfg.n_layers, cfg.encoder_layers
+    want = Le + 2 * L + WHISPER_NEW_TOKENS * L
+    k5 = counts.get("flash_attention_wgmma", 0)
+    if after_prefill != Le + 2 * L or k5 != want or \
+            counts.get("flash_attention", 0) or rec.launches() != k5:
+        fail(f"whisper-small: K5's wgmma kernel launched {after_prefill} "
+             f"times in the prefill (want {Le + 2 * L}) and {k5} in all "
+             f"(want {want}), its TF32 kernel "
+             f"{counts.get('flash_attention', 0)} times")
+    tokens = torch.stack(out_tokens, 1).cpu().numpy()
+    if not all(finite) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        fail("whisper-small: non-finite logits or tokens out of range")
+    by_layout = {(key[4], key[1][2]): n for key, n in rec.counts.items()}
+    if by_layout != {(False, cfg.enc_context): Le, (True, p): L,
+                     (False, p): L, (False, 1): WHISPER_NEW_TOKENS * L}:
+        fail(f"whisper-small: K5 launches by layout {rec.counts}")
+    out = {"arch": cfg.name, "batch": b, "frames": cfg.enc_context,
+           "prompt": p, "new_tokens": WHISPER_NEW_TOKENS, "init_s": init_s,
+           "launches": counts, "k5_launches": k5,
+           "k5_by_layout": {_k5_label(k): n for k, n in rec.counts.items()},
+           "prefill_s": t_prefill, "wall_s": wall,
+           "decode_ms_per_tick": (wall - t_prefill) / WHISPER_NEW_TOKENS
+           * 1e3, "tokens": tokens.tolist()}
+    print(f"whisper-small: {b} x {cfg.enc_context} frames encoded and "
+          f"{p}-token prompts prefilled in {t_prefill * 1e3:.1f} ms, "
+          f"{WHISPER_NEW_TOKENS} greedy tokens at "
+          f"{out['decode_ms_per_tick']:.2f} ms a tick, K5 (wgmma) launches "
+          f"{k5} ({Le} non-causal + {L} causal + {L} cross a prefill, {L} "
+          f"cross a tick) [{smi}]", flush=True)
+    out["decode_vs_prefill"] = decode_vs_prefill_bf16(
+        (lambda t: whisper.prefill(params, cfg, audio, t, WHISPER_CONTEXT),
+         lambda c, t: whisper.decode_step(params, cfg, c, t)),
+        cfg, toks, p, "whisper-small")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"whisper-small: peak memory {out['peak_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    return out, rec
+
+
+def families_phase(dev, smi: str, seed: int) -> dict:
+    """Slice 11's main paths: the remaining LM families on the card.
+    hymba-1.5b (32 layers) and rwkv6-7b (32 layers) at full width and
+    depth, mixtral-8x22b at full width cut to 2 of 56 layers and dbrx-132b
+    to 1 of 40 (memory), each served through ``ServeEngine`` with decode
+    against prefill; the LUT time mix and the rwkv task's trunk; whisper-
+    small encoded, prefilled and decoded; a 2-layer f32 cut of each family
+    on the card against the CPU (K5's TF32 kernel); every K5 layout the
+    paths launched held against the plain version, and K5 alone at one
+    layout of each."""
+    import torch
+    from repro_torch.configs import lm_archs
+
+    t0 = time.perf_counter()
+    out, recs, rows = {}, {}, []
+    for arch, kw in (("hymba-1.5b", dict(prompts=HYMBA_PROMPTS, dvp_n=1100)),
+                     ("mixtral-8x22b", dict(prompts=MOE_PROMPTS, dvp_n=129,
+                                            layers=MIXTRAL_LAYERS)),
+                     ("dbrx-132b", dict(prompts=MOE_PROMPTS, dvp_n=129,
+                                        layers=DBRX_LAYERS)),
+                     ("rwkv6-7b", dict(prompts=RWKV_PROMPTS, dvp_n=129))):
+        out[arch], recs[arch], model, cfg = serve_lm_family(
+            arch, dev, seed, smi, **kw)
+        if arch == "rwkv6-7b":
+            out["lut_time_mix"] = lut_time_mix(model, cfg, seed, smi)
+            rows += out["lut_time_mix"].pop("kernels")
+        del model
+        torch.cuda.empty_cache()
+    out["rwkv_task_data"] = rwkv_task_data(dev, smi)
+    out["whisper-small"], recs["whisper-small"] = serve_whisper(dev, seed,
+                                                                smi)
+    out["k5_held"] = {a: hold_k5_record(r, a) for a, r in recs.items()}
+    for name, arch, causal, sq_max in (
+            ("hymba-1.5b prefill layer", "hymba-1.5b", True, None),
+            ("mixtral-8x22b prefill layer", "mixtral-8x22b", True, None),
+            ("dbrx-132b prefill layer", "dbrx-132b", True, None),
+            ("whisper-small encoder layer", "whisper-small", False, None),
+            ("whisper-small cross-attention, prefill", "whisper-small",
+             False, WHISPER_PROMPT),
+            ("whisper-small cross-attention, decode", "whisper-small",
+             False, 1)):
+        key = _largest(recs[arch], causal, sq_max)
+        rows.append(k5_layout_row(name, f"{arch} serve", recs[arch], key,
+                                  smi))
+    out["f32_cut"] = {}
+    for arch, k5 in (("hymba-1.5b", 2), ("mixtral-8x22b", 2),
+                     ("dbrx-132b", 2), ("rwkv6-7b", 0),
+                     ("whisper-small", 6)):
+        out["f32_cut"][arch] = family_f32_cut(lm_archs.get(arch), dev, seed,
+                                              arch, k5)
+    out["kernels"] = rows
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 (the remaining LM families): {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def main(seed: int) -> dict:
     """Run every phase; return the report (exits on the first failure)."""
     import numpy as np
@@ -3066,6 +3760,9 @@ def main(seed: int) -> dict:
     # -- phase 10: the assembly search (slice 10) -----------------------------
     report["search"] = search_phase(dev, smi, seed, art_dir)
 
+    # -- phase 11: the remaining LM families (slice 11) ------------------------
+    report["families"] = families_phase(dev, smi, seed)
+
     for k in kernels:
         if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
@@ -3127,6 +3824,11 @@ def main(seed: int) -> dict:
     for k in report["search"]["population"]["kernels"]:
         kernels.append(dict(k, route="cuda", source=SOURCES[k["name"]],
                             replaces=REPLACES[k["name"]]))
+    # the remaining LM families' new call shapes: K5 at each new layout, K1
+    # and K3 at the LUT time-mix cell, launches of their main paths' runs
+    for k in report["families"]["kernels"]:
+        kernels.append(dict(k, route="cuda", source=SOURCES[k["name"]],
+                            replaces=REPLACES[k["name"]]))
     report["kernels"] = kernels
     report["profiler_lead_lost"] = {str(n): LEAD_LOST.count(n)
                                     for n in sorted(set(LEAD_LOST))}
@@ -3178,6 +3880,21 @@ if __name__ == "__main__":
                     "name", "accuracy", "luts", "adp", "calibration")}
                     for pt in se["nid"]["frontier"]]},
         "mesh_survivors_equal": True, "seconds": se["seconds"]}}))
+    fa = rep["families"]
+    print(json.dumps({"lm_families": {
+        **{a: {key: fa[a][key] for key in (
+            "layers", "k5_launches", "tokens_per_s", "decode_ms_median",
+            "peak_bytes", "reduced", "decode_vs_prefill")}
+           for a in ("hymba-1.5b", "mixtral-8x22b", "dbrx-132b",
+                     "rwkv6-7b")},
+        "whisper-small": {key: fa["whisper-small"][key] for key in (
+            "k5_launches", "prefill_s", "decode_ms_per_tick", "peak_bytes",
+            "decode_vs_prefill")},
+        "lut_time_mix": {be: fa["lut_time_mix"][be]["stream_steps_per_s"]
+                         for be in ("fused", "pallas")},
+        "f32_card_vs_cpu": {a: v["card_vs_cpu_max_abs_diff"]
+                            for a, v in fa["f32_cut"].items()},
+        "seconds": fa["seconds"]}}))
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,7 +1,7 @@
 """The ten LM architectures (``repro.configs.lm_archs``), copied entry for
 entry: ``get(name)`` is the full size, ``smoke(name)`` a reduced variant of
-the same family for CPU tests.  The port runs the ``dense`` and ``vlm``
-families; the others raise ``NotImplementedError`` in ``models.lm``."""
+the same family for CPU tests.  ``models.lm`` runs every family but
+``audio`` (whisper), which ``models.whisper`` runs."""
 from __future__ import annotations
 
 import dataclasses

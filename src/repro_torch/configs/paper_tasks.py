@@ -6,6 +6,8 @@ sequential (stream) tasks, whose configs are recurrent cells
 """
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.core.assemble import AssembleConfig, LayerSpec
 
 
@@ -142,8 +144,8 @@ def seqmnist_reduced():
 def rwkv_mix_reduced():
     """LUT time-mix head replacement: the cell consumes per-step features
     from a fixed RWKV trunk and acts as the recurrent head (10 logits + 8
-    state codes).  Its data needs the RWKV trunk, which the port does not
-    have yet (:func:`stream_task_data` raises)."""
+    state codes); :func:`stream_task_data` passes its chunk streams through
+    ``models.rwkv.feature_stream``."""
     from repro_torch.stream.cell import StreamCellConfig
     net = AssembleConfig(
         in_features=24, input_bits=2, input_signed=True,
@@ -175,19 +177,25 @@ def stream_task_config(name: str):
 
 
 def stream_task_data(name: str, *, n_train: int = 2048, n_test: int = 512,
-                     seed: int = 0):
+                     seed: int = 0, device=None):
     """Load and stream-convert the dataset of a sequential task: a
     :class:`~repro_torch.data.synthetic.SeqDataset` of ``[N, T, n_in]``
-    chunk streams."""
+    chunk streams.  The rwkv task also passes the chunks through the fixed
+    trunk block (``models.rwkv.feature_stream``) on ``device`` (CUDA by
+    default)."""
     from repro_torch.data import synthetic
     if name not in STREAM_TASKS:
         raise ValueError(
             f"unknown stream task {name!r}; known: {sorted(STREAM_TASKS)}")
-    if name == "rwkv_mix_reduced":
-        raise NotImplementedError(
-            "rwkv_mix_reduced streams features of an RWKV trunk "
-            "(models.rwkv.feature_stream), which the port does not have yet "
-            "(ROADMAP A.14c)")
     ds_name, chunk, _ = STREAM_TASKS[name]
     data = synthetic.load(ds_name, n_train=n_train, n_test=n_test, seed=seed)
-    return synthetic.to_sequences(data, chunk)
+    seq = synthetic.to_sequences(data, chunk)
+    if name == "rwkv_mix_reduced":
+        from repro_torch import device as _device
+        from repro_torch.models import rwkv
+        dev = _device.resolve(device)
+        seq = dataclasses.replace(
+            seq, name=seq.name + "-rwkv",
+            x_train=rwkv.feature_stream(seq.x_train, device=dev),
+            x_test=rwkv.feature_stream(seq.x_test, device=dev))
+    return seq

@@ -129,28 +129,39 @@ def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
 
 
 def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool, window: Optional[int], q_positions: range,
-               k_positions: range) -> torch.Tensor:
+               causal: bool, window: Optional[int], q_positions: Positions,
+               k_positions: Positions) -> torch.Tensor:
     """Online-softmax attention in the grouped layout, through K5.
 
     q ``[B, Hkv, G, Sq, hd]``; k/v ``[B, Hkv, Skv, hd]``; returns
-    ``[B, Hkv, G, Sq, hd]`` in q's type.  Positions are host-side ranges:
-    ``k_positions = range(Skv)`` and ``q_positions = range(off, off + Sq)``,
-    the only form the callers of this slice pass (K5 masks by ``q_offset``,
-    so no device sync is needed to check them).
+    ``[B, Hkv, G, Sq, hd]`` in q's type.  A causal or windowed call takes
+    host-side ranges, ``k_positions = range(Skv)`` and ``q_positions =
+    range(off, off + Sq)`` (K5 masks by ``q_offset``, so no device sync is
+    needed to check them).  A call that is neither causal nor windowed
+    masks nothing by position, so its positions may be tensors (whisper's
+    encoder passes ``arange(S)``, its cross-attention ``full(Sq, Skv)``);
+    every key must then be valid (``k_positions >= 0``), as every caller
+    has it.
     """
     b, hk, g, sq, hd = q.shape
     skv = k.shape[2]
-    if not (isinstance(q_positions, range) and isinstance(k_positions, range)
-            and k_positions == range(skv) and q_positions.step == 1
-            and len(q_positions) == sq):
-        raise NotImplementedError(
-            "flash_scan takes k_positions = range(Skv) and q_positions = "
-            f"range(offset, offset + Sq); got {q_positions!r}, "
-            f"{k_positions!r}")
+    if causal or window is not None:
+        if not (isinstance(q_positions, range)
+                and isinstance(k_positions, range)
+                and k_positions == range(skv) and q_positions.step == 1
+                and len(q_positions) == sq):
+            raise NotImplementedError(
+                "a causal or windowed flash_scan takes k_positions = "
+                "range(Skv) and q_positions = range(offset, offset + Sq); "
+                f"got {q_positions!r}, {k_positions!r}")
+        q_offset = q_positions.start
+    else:
+        if len(q_positions) != sq or len(k_positions) != skv:
+            raise ValueError(f"{len(q_positions)} q and {len(k_positions)} "
+                             f"k positions for Sq {sq}, Skv {skv}")
+        q_offset = 0
     o = ops.flash_attention(q.reshape(b, hk * g, sq, hd), k, v,
-                            causal=causal, window=window,
-                            q_offset=q_positions.start)
+                            causal=causal, window=window, q_offset=q_offset)
     return o.view(b, hk, g, sq, hd)
 
 
@@ -161,7 +172,7 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
 
 
 def attention_train(p: Attention, spec: AttnSpec, x: torch.Tensor,
-                    positions: range, freqs: Optional[torch.Tensor]
+                    positions: Positions, freqs: Optional[torch.Tensor]
                     ) -> torch.Tensor:
     """Full-sequence attention (forward only). x ``[B, S, D]``."""
     q, k, v = _project_qkv(p, spec, x, positions, freqs)
@@ -270,3 +281,38 @@ def attention_decode(p: Attention, spec: AttnSpec, x: torch.Tensor,
     o = torch.einsum("bhgqk,bhkd->bhgqd", prob, v_new.float())
     o = _merge_heads(o.to(x.dtype))
     return o @ p.wo.to(x.dtype), KVCache(k=k_new, v=v_new)
+
+
+def cross_attention(p: Attention, spec: AttnSpec, x: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper): q from ``x [B, S, D]``,
+    k/v precomputed ``[B, Hkv, S_enc, hd]``; no mask, no rope.  One
+    non-causal K5 launch on the card, at Sq = S (Sq = 1 when decoding)."""
+    b, s, _ = x.shape
+    hk, hd = spec.n_kv_heads, spec.head_dim
+    g = spec.n_heads // hk
+    dt = x.dtype
+    q = x @ p.wq.to(dt)
+    if spec.qkv_bias:
+        q = q + p.bq.to(dt)
+    q = q.reshape(b, s, hk, g, hd).permute(0, 2, 3, 1, 4)
+    skv = k.shape[2]
+    o = flash_scan(q, k, v, causal=False, window=None,
+                   q_positions=range(skv, skv + s), k_positions=range(skv))
+    return _merge_heads(o) @ p.wo.to(dt)
+
+
+def project_kv(p: Attention, spec: AttnSpec, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K/V projection alone (the cross-attention source): x ``[B, S,
+    D]`` -> k, v ``[B, Hkv, S, hd]``."""
+    b, s, _ = x.shape
+    hk, hd = spec.n_kv_heads, spec.head_dim
+    dt = x.dtype
+    k = x @ p.wk.to(dt)
+    v = x @ p.wv.to(dt)
+    if spec.qkv_bias:
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
+    return (k.reshape(b, s, hk, hd).permute(0, 2, 1, 3),
+            v.reshape(b, s, hk, hd).permute(0, 2, 1, 3))

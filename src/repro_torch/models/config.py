@@ -3,7 +3,7 @@ field so that a config compares equal across the two packages.
 
 One frozen dataclass describes any member of the supported families
 (dense / moe / ssm / hybrid / audio enc-dec / vlm); family-specific fields
-are unused elsewhere.  The port runs the ``dense`` and ``vlm`` families.
+are unused elsewhere.
 """
 from __future__ import annotations
 

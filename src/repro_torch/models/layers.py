@@ -33,6 +33,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     return x * inv * w
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm: mean and variance (``E[x^2] - mu^2``) in f32, the centring,
+    scaling and shift in the working type (the reference's order)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.square().mean(-1, keepdim=True) - mu.square()
+    inv = torch.rsqrt(var + eps)
+    y = (x - mu.to(dt)) * inv.to(dt)
+    return y * scale.to(dt) + bias.to(dt)
+
+
 def rope_freqs(head_dim: int, theta: float = 10_000.0,
                device=None) -> torch.Tensor:
     """Inverse rotary frequencies ``[head_dim // 2]``, f32."""
@@ -51,6 +64,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(dt)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings ``[length, dim]``, f32: sines
+    then cosines of ``pos / 10000^(2i / dim)``."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angles = pos / (10_000.0 ** (2 * idx / dim))
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 def _relu2(x: torch.Tensor) -> torch.Tensor:

@@ -154,8 +154,10 @@ class ServeEngine:
 def _splice_cache(batched: Dict[str, torch.Tensor],
                   single: Dict[str, torch.Tensor], slot: int) -> None:
     """Write a batch-1 prefill cache into slot ``slot`` of the batched cache,
-    in place (the reference builds a new cache): ``kv_k``/``kv_v [L, B,
-    ...]`` on axis 1, ``pos [B]`` and ``slot_pos [B, W]`` on axis 0."""
+    in place (the reference builds a new cache): ``pos [B]`` and ``slot_pos
+    [B, W]`` on axis 0, every other entry (``kv_k``/``kv_v``, the hybrid's
+    ``ssm_h``/``ssm_conv``, RWKV's ``rwkv_wkv``/``rwkv_tm``/``rwkv_cm``, all
+    ``[L, B, ...]``) on axis 1."""
     for key, val in single.items():
         if key in ("pos", "slot_pos"):
             batched[key][slot] = val[0]

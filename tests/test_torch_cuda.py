@@ -982,3 +982,100 @@ def test_meshed_rungs_on_two_slots_equal_the_sliced_run(cuda):
     assert meshed.dist["mode"] == "mesh" and not meshed.dist["partial"]
     assert meshed.rungs == sliced.rungs
     assert meshed.evaluated == sliced.evaluated
+
+
+# ---------------------------------------------------------------------------
+# the remaining LM families: K5 at their layouts, each family card vs CPU
+# ---------------------------------------------------------------------------
+
+# (b, hq, hkv, sq, skv, d, causal, window, q_offset): hymba (25 q heads on 5,
+# D 64, window 1024, a prompt past the window), mixtral (48 on 8, D 128,
+# window 4096), whisper's encoder (12 on 12, D 64, 1,536 frames,
+# non-causal) and cross attention (Sq = prompt and Sq = 1 on 1,536 frames)
+NEW_K5_LAYOUTS = [(1, 25, 5, 1100, 1100, 64, True, 1024, 0),
+                  (1, 48, 8, 300, 300, 128, True, 4096, 0),
+                  (1, 12, 12, 1536, 1536, 64, False, None, 0),
+                  (2, 12, 12, 33, 1536, 64, False, None, 0),
+                  (4, 12, 12, 1, 1536, 64, False, None, 0)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,q_offset",
+                         NEW_K5_LAYOUTS)
+def test_flash_attention_new_layouts_bf16_and_f32(b, hq, hkv, sq, skv, d,
+                                                  causal, window, q_offset,
+                                                  cuda):
+    """bf16 through the wgmma kernel (one bf16 ulp, rtol 2^-7, atol 1e-5;
+    q as the model's strided view), f32 through the TF32 kernel (2e-5)."""
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, sq + hq, cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    for dtype, kernel, tol in ((torch.bfloat16, flash_attention.WGMMA,
+                                dict(rtol=2 ** -7, atol=1e-5)),
+                               (torch.float32, flash_attention.TF32,
+                                dict(rtol=2e-5, atol=2e-5))):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        qd = qd.transpose(1, 2).contiguous().transpose(1, 2)
+        build.reset_counters()
+        got = flash_attention.flash_attention_cuda(qd, kd, vd, **kw)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        assert counts[kernel] == 1 and sum(counts.values()) == 1
+        torch.testing.assert_close(
+            got.float(),
+            flash_attention.flash_attention_plain(qd, kd, vd, **kw).float(),
+            **tol)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b", "rwkv6-7b",
+                                  "hymba-1.5b", "whisper-small"])
+def test_new_family_smoke_on_card_matches_cpu(arch, cuda):
+    """Each family's f32 smoke prefill and two decode steps on the card
+    against the CPU (1e-4, summation order), with K5 once a layer per
+    attention call; the MoE's routing and combine give equal bits on two
+    card runs."""
+    import dataclasses
+    from repro_torch.configs import lm_archs
+    from repro_torch.models import lm, whisper
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(lm_archs.smoke(arch), dtype="float32")
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab, (2, 22)).astype(np.int32))
+    if cfg.is_enc_dec:
+        model = whisper.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        audio = torch.from_numpy(np.random.RandomState(2).normal(
+            size=(2, cfg.enc_context, cfg.d_model)).astype(np.float32))
+
+        def run(m, dev):
+            logits, cache = whisper.prefill(m, cfg, audio.to(dev),
+                                            toks[:, :20].to(dev), 32)
+            out = [logits]
+            for i in (20, 21):
+                logits, cache = whisper.decode_step(m, cfg, cache,
+                                                    toks[:, i:i + 1].to(dev))
+                out.append(logits)
+            return out
+        card = whisper.compute_copy(model, cfg, cuda)
+        # encoder, decoder self and cross per prefill; cross per decode
+        want_k5 = cfg.encoder_layers + 2 * cfg.n_layers + 2 * cfg.n_layers
+    else:
+        model = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+        def run(m, dev):
+            logits, cache = lm.prefill(m, cfg, toks[:, :20].to(dev), 32)
+            out = [logits]
+            for i in (20, 21):
+                logits, cache = lm.decode_step(m, cfg, cache,
+                                               toks[:, i:i + 1].to(dev))
+                out.append(logits)
+            return out
+        card = lm.compute_copy(model, cfg, cuda)
+        want_k5 = 0 if cfg.family == "ssm" else cfg.n_layers
+    build.reset_counters()
+    got = run(card, cuda)
+    torch.cuda.synchronize()
+    assert build.launch_counts().get(flash_attention.TF32, 0) == want_k5
+    for g, w in zip(got, run(model, "cpu")):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    if cfg.family == "moe":
+        for g, again in zip(got, run(card, cuda)):
+            assert torch.equal(g, again)

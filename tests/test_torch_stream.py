@@ -661,8 +661,15 @@ def test_stream_task_registry():
         ttasks.stream_task_config("nope")
     with pytest.raises(ValueError, match="unknown stream task"):
         ttasks.stream_task_data("nope")
-    with pytest.raises(NotImplementedError, match="A.14c"):
-        ttasks.stream_task_data("rwkv_mix_reduced")
+    rwkv_seq = ttasks.stream_task_data("rwkv_mix_reduced", n_train=8,
+                                       n_test=4, device="cpu")
+    rwkv_want = jtasks.stream_task_data("rwkv_mix_reduced", n_train=8,
+                                        n_test=4)
+    assert rwkv_seq.name == rwkv_want.name
+    # the trunk's He draws are within 3 ulps of JAX's (data/jax_prng.py)
+    np.testing.assert_allclose(rwkv_seq.x_train, rwkv_want.x_train,
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_array_equal(rwkv_seq.y_test, rwkv_want.y_test)
     seq = ttasks.stream_task_data("seqmnist_reduced", n_train=32, n_test=16)
     want = jtasks.stream_task_data("seqmnist_reduced", n_train=32,
                                    n_test=16)

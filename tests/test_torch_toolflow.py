@@ -144,11 +144,16 @@ def test_unported_branches_raise():
         n_state = 4
 
     # stream cells route the flow since slice 8; the stream task whose
-    # data needs the unported RWKV trunk still raises
+    # data passes through the RWKV trunk is served since slice 11
     flow = tpipeline.Toolflow(Cell(), device="cpu")
     assert flow.cell is not None and flow.cfg is cfg
-    with pytest.raises(NotImplementedError, match="A.14c"):
-        tpaper_tasks.stream_task_data("rwkv_mix_reduced")
+    seq = tpaper_tasks.stream_task_data("rwkv_mix_reduced", n_train=4,
+                                        n_test=4, device="cpu")
+    want = jtasks.stream_task_data("rwkv_mix_reduced", n_train=4,
+                                   n_test=4)
+    np.testing.assert_allclose(seq.x_test, want.x_test, rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_array_equal(seq.y_train, want.y_train)
     # the search is ported since slice 10: an unknown task is refused
     with pytest.raises(ValueError, match="unknown task"):
         tpipeline.Toolflow.search("nope", device="cpu")
