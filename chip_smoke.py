@@ -61,15 +61,28 @@ shapes, and drives both main paths:
   non-causal, causal and cross at Sq = 1; a 2-layer f32 cut of each family
   (K5's TF32 kernel) against the CPU; every K5 layout the paths launched
   held against the plain version, and K5 alone at each new layout beside
-  SDPA.
+  SDPA;
+* LM training (slice 12): full-width, full-depth gemma-2b (f32 masters
+  drawn on the card, bf16 compute, remat, the chunked loss) trained 5
+  steps through ``train/loop.run`` on ``tokens.SyntheticCorpus`` batches
+  of 4 x 1,024, with K5's wgmma kernel in every forward and remat
+  recompute (36 launches a step) and a plain backward; whisper-small
+  trained through the CLI (``launch.train``); K5 at those layouts held
+  against the plain version, its gradient against ``mha_ref``'s, timed
+  beside SDPA; one f32 smoke train step of gemma-2b, mixtral-8x22b,
+  rwkv6-7b, hymba-1.5b and whisper-small on the card against the CPU; a
+  failure injected into a checkpointed run replayed to the uninterrupted
+  run's state, and the card's checkpoint restored on the CPU; the folded
+  LUT router example (``examples/torch_lut_router_moe.py``).
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
 is timed.  Any failed phase exits nonzero.  The last three lines of
 standard output are a JSON object with every kernel's launches, error and
 times, the card's ``name, power.limit``, then ``{"ok": true, "device":
-{...}}``; a ``{"fleet": ...}``, a ``{"search": ...}`` and an
-``{"lm_families": ...}`` line come before them.  A full report goes
+{...}}``; a ``{"fleet": ...}``, a ``{"search": ...}``, an
+``{"lm_families": ...}`` and an ``{"lm_train": ...}`` line come before
+them.  A full report goes
 to ``build/chip_smoke/report.json``.
 Imports nothing of JAX.
 """
@@ -77,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2055,14 +2069,18 @@ def fleet_kernels(net, dev, seed: int, smi: str) -> list:
         device_ms = traced_ms(kern, sub, 10, per)
         device_ms = None if device_ms is None else device_ms / per
         lib_ms = None if lib is None else per_call_ms(lib) / per
+        lib_dev = None if lib is None else traced_all_ms(lib)[0]
+        lib_dev = None if lib_dev is None else lib_dev / per
         bound_ms, bound_by = bound(nbytes // per, n_ops if per == 1 else 0)
         rows.append({"name": name, "path": path, "task": task, "batch": b,
                      "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "max_abs_err": err})
+                     "library_ms": lib_ms, "library_device_ms": lib_dev,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "max_abs_err": err})
         print(f"time {name} ({task}, batch {b}, per launch): kernel "
               f"{ms:.4f} ms (device {device_ms} ms), plain {plain_ms:.4f} "
-              f"ms, library {lib_ms} ms, bound {bound_ms:.6f} ms "
+              f"ms, library {lib_ms} ms (device {lib_dev} ms), bound "
+              f"{bound_ms:.6f} ms "
               f"({bound_by})" + (f", plan {k1_plan(ops, b)}" if per == 1
                                  else "") + f" [{smi}]", flush=True)
     rows[0]["plan"] = k1_plan(ops, b1)
@@ -3386,6 +3404,502 @@ def families_phase(dev, smi: str, seed: int) -> dict:
     return out
 
 
+TRAIN_BATCH = 4              # rows of a full-width gemma-2b training step
+TRAIN_SEQ = 1024             # tokens a row
+TRAIN_STEPS = 5              # loop steps at full width
+TRAIN_LR = 1e-4              # constant (no schedule: a 10-step warm-up, as
+                             # the CLI's cosine_schedule has, would keep all
+                             # 5 steps near lr 0), weight decay 0.1, clip 1;
+                             # at 1e-3 the 4th step's loss spiked
+TRAIN_K5_PER_STEP = 36       # 18 layers x (the forward + remat's recompute);
+                             # the backward is plain PyTorch, no launch
+WHISPER_TRAIN = ("--steps", "2", "--batch", "4", "--seq", "512")
+WHISPER_K5_PER_STEP = 72     # (12 encoder + 12 self + 12 cross) x 2 (remat)
+TRAIN_SMOKE_ARCHS = ("gemma-2b", "mixtral-8x22b", "rwkv6-7b", "hymba-1.5b",
+                     "whisper-small")
+TRAIN_SMOKE_BATCH = (2, 24)  # rows, tokens of the card-vs-CPU smoke steps
+TRAIN_LOSS_RTOL = 1e-5
+# each gradient leaf within this share of its largest entry (a leaf whose
+# exact gradient is 0, a key bias, against 1e-3 of the model's largest);
+# RWKV's f32 gradient at the smoke config is 1.1e-3 from an f64 run of the
+# same code (the JAX package's 2.3e-3; ROADMAP C.6, pinned by
+# tests/test_torch_train_lm.py::test_rwkv_gradient_f32_floor), so 3e-3
+TRAIN_GRAD_TOL = {"rwkv6-7b": 3e-3}
+TRAIN_GRAD_TOL_DEFAULT = 1e-4
+TRAIN_ZERO_GRAD_FLOOR = 1e-3
+REPLAY_STEPS, REPLAY_FAIL_AT, REPLAY_CKPT_EVERY = 6, 5, 2
+REPLAY_TOL = 1e-6            # final parameters, replayed vs uninterrupted
+ROUTER_MIN_AGREEMENT = 0.9   # the reference example reaches 0.992 (CPU)
+
+
+def _idle_step(fn, label: str) -> dict:
+    """Wall, device busy and idle share of one profiled call of ``fn``
+    from a trace that holds every launch (taken again with a longer lead
+    otherwise; None after ``TRACE_LEADS`` tries)."""
+    for lead in TRACE_LEADS:
+        wall, prof, lost = profile(fn, calls=1, lead=lead)
+        if prof and not lost:
+            busy = sum(sec for _, sec in prof.values())
+            top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]
+            return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+                    "device_idle_share": 1.0 - busy / wall,
+                    "trace_lead": lead,
+                    "top_kernels": {k[:60]: (c, sec * 1e3)
+                                    for k, (c, sec) in top}}
+        RETRACED.append({"kernel": label, "lead": lead, "lost": lost,
+                         "lead_lost": LEAD_LOST[-1]})
+    _untraced(label, f"{lost} launch calls without device work")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": None,
+            "device_idle_share": None}
+
+
+def train_gemma(dev, smi: str, seed: int) -> tuple:
+    """Full-width, full-depth gemma-2b trained ``TRAIN_STEPS`` steps
+    through ``train/loop.run``: f32 masters drawn on the card, bf16
+    compute, remat, the chunked loss (chunk 512), batches of ``TRAIN_BATCH
+    x TRAIN_SEQ`` from ``tokens.SyntheticCorpus`` at its 256,000-token
+    vocabulary.  Fails unless every loss is finite, the last is below the
+    first, and K5's wgmma kernel launched ``TRAIN_K5_PER_STEP`` times a
+    step (TF32 never).  Reports step ms (median of steps 2-5), the
+    batches' host seconds on their own, tokens/s, peak memory and the idle
+    share of one profiled step.  Returns (report, K5 recorder)."""
+    import gc
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.data import tokens
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.train import loop, optim
+
+    cfg = lm_archs.GEMMA_2B
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = steps.init_fn(cfg)(torch.Generator(dev).manual_seed(seed), dev)
+    opt = steps.opt_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in steps.train_leaves(params))
+    corpus = tokens.SyntheticCorpus(tokens.TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=seed))
+    batch_s, last = [], {}
+
+    def batch_fn(step):
+        t = time.perf_counter()
+        toks = corpus.sample_batch(step, TRAIN_BATCH)
+        last["batch"] = steps.batch_on({"tokens": toks[:, :-1],
+                                        "labels": toks[:, 1:]}, dev)
+        batch_s.append(time.perf_counter() - t)
+        return last["batch"]
+
+    step_fn = steps.make_train_step(cfg, opt_cfg=optim.AdamWConfig(
+        lr=TRAIN_LR, weight_decay=0.1))
+    state = loop.LoopState(params=params, opt_state=opt)
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    with K5Recorder() as rec:
+        state = loop.run(loop.LoopConfig(total_steps=TRAIN_STEPS), state,
+                         step_fn, batch_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = state.metrics_history
+    losses_ = [m["loss"] for m in hist]
+    k5 = counts.get("flash_attention_wgmma", 0)
+    step_ms = statistics.median(m["step_time_s"] for m in hist[1:]) * 1e3
+    idle = _idle_step(lambda: step_fn(state.params, state.opt_state,
+                                      last["batch"]), "a gemma-2b train step")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "lr": TRAIN_LR, "schedule": None, "weight_decay": 0.1,
+           "loss_chunk": cfg.loss_chunk, "remat": cfg.remat,
+           "init_s": init_s, "losses": losses_,
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "step_ms": [m["step_time_s"] * 1e3 for m in hist],
+           "step_ms_median_2_5": step_ms, "batch_fn_s": batch_s,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "loop_wall_s": wall, "peak_bytes": peak,
+           "k5_launches": k5, "k5_launches_per_step": k5 / TRAIN_STEPS,
+           "launches": counts, "profiled_step": idle}
+    print(f"gemma-2b train ({n_params / 1e9:.3f} B parameters, f32 masters, "
+          f"bf16 compute, remat, batch {TRAIN_BATCH} x {TRAIN_SEQ}): losses "
+          f"{[round(x, 4) for x in losses_]}, step ms "
+          f"{[round(x, 1) for x in out['step_ms']]} (median of 2-5 "
+          f"{step_ms:.1f}), batch_fn s {[round(x, 3) for x in batch_s]}, "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB, K5 wgmma {k5 / TRAIN_STEPS:g} a step; "
+          f"profiled step wall {idle['wall_ms']:.1f} ms, device busy "
+          f"{idle['device_busy_ms']} ms, idle share "
+          f"{idle['device_idle_share']} [{smi}]", flush=True)
+    if not all(math.isfinite(x) for x in losses_) or \
+            not losses_[-1] < losses_[0]:
+        fail(f"gemma-2b train: losses {losses_} (finite, last below first)")
+    if k5 != TRAIN_K5_PER_STEP * TRAIN_STEPS or \
+            counts.get("flash_attention", 0) or rec.launches() != k5:
+        fail(f"gemma-2b train: K5 wgmma launched {k5} times in "
+             f"{TRAIN_STEPS} steps, not {TRAIN_K5_PER_STEP} a step; TF32 "
+             f"{counts.get('flash_attention', 0)}")
+    del state, params, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rec
+
+
+def train_whisper(dev, smi: str) -> tuple:
+    """whisper-small at full width and depth trained through the CLI
+    (``launch.train.main``; its batches and cosine schedule) for a few
+    steps: K5 non-causal in the encoder, causal in the decoder, cross
+    attention, ``WHISPER_K5_PER_STEP`` wgmma launches a step."""
+    import gc
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+
+    build.reset_counters()
+    with K5Recorder() as rec:
+        state = train.main(["--arch", "whisper-small", *WHISPER_TRAIN])
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    k5 = counts.get("flash_attention_wgmma", 0)
+    losses_ = [m["loss"] for m in state.metrics_history]
+    n = len(losses_)
+    if not all(math.isfinite(x) for x in losses_) or \
+            k5 != WHISPER_K5_PER_STEP * n or counts.get("flash_attention", 0):
+        fail(f"whisper-small train: losses {losses_}, K5 wgmma {k5} (not "
+             f"{WHISPER_K5_PER_STEP} a step), TF32 "
+             f"{counts.get('flash_attention', 0)}")
+    out = {"steps": n, "losses": losses_, "k5_launches": k5,
+           "k5_launches_per_step": k5 / n, "cli": list(WHISPER_TRAIN),
+           "step_ms": [m["step_time_s"] * 1e3 for m in state.metrics_history]}
+    print(f"whisper-small train (CLI, {' '.join(WHISPER_TRAIN)}): losses "
+          f"{[round(x, 4) for x in losses_]}, step ms "
+          f"{[round(x, 1) for x in out['step_ms']]}, K5 wgmma {k5 / n:g} a "
+          f"step [{smi}]", flush=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rec
+
+
+def k5_train_grads(rec: K5Recorder, key, seed: int, label: str) -> dict:
+    """K5 with a gradient at one recorded training layout: the forward
+    through ``FlashAttentionFn`` on the card (one launch), the backward
+    with no launch, and q/k/v grads against ``mha_ref``'s autograd on f32
+    copies of the same inputs and output gradient, rounded to the inputs'
+    type (the gradient sums a KV head's group in f32), within one bf16
+    ulp."""
+    import torch
+    from repro_torch.kernels import build, flash_attention as fa
+    from repro_torch.kernels.ref import mha_ref
+
+    q, k, v, kw = rec.calls[key]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    build.reset_counters()
+    o = fa.flash_attention_cuda(*leaves, **kw)
+    torch.cuda.synchronize()
+    fwd = sum(build.launch_counts().get(n, 0) for n in (fa.WGMMA, fa.TF32))
+    g = torch.randn(o.shape, device=o.device, generator=torch.Generator(
+        o.device).manual_seed(seed)).to(o.dtype)
+    build.reset_counters()
+    o.backward(g)
+    torch.cuda.synchronize()
+    bwd = sum(build.launch_counts().get(n, 0) for n in (fa.WGMMA, fa.TF32))
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    mha_ref(*ref, **kw).backward(g.float())
+    errs = {}
+    for name, a, b in zip("qkv", leaves, ref):
+        want = b.grad.to(a.dtype).float()
+        errs[name] = float((a.grad.float() - want).abs().max())
+        if not torch.allclose(a.grad.float(), want, rtol=K5_BF16_RTOL,
+                              atol=K5_BF16_ATOL):
+            fail(f"K5 gradient at {label}: d{name} max |diff| {errs[name]}")
+    if fwd != 1 or bwd:
+        fail(f"K5 at {label}: {fwd} forward launches (not 1), {bwd} in the "
+             "backward (not 0)")
+    print(f"K5 gradient at {label} ({_k5_label(key)}): one forward launch, "
+          f"none in the backward; dq/dk/dv max |diff| against mha_ref's "
+          f"autograd {errs}", flush=True)
+    return {"layout": _k5_label(key), "forward_launches": fwd,
+            "backward_launches": bwd, "max_abs_err": errs}
+
+
+def k5_backward_times(rec: K5Recorder, key, smi: str) -> dict:
+    """At one recorded training layout: ms of the plain backward
+    (``attention_grads``, what training runs) and of SDPA's forward plus
+    backward on the same inputs, by CUDA events."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, kw = rec.calls[key]
+    g = torch.ones(q.shape, dtype=q.dtype, device=q.device)
+    plain = per_call_ms(lambda: fa.attention_grads(q, k, v, g, **kw),
+                        calls=10, reps=3)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=kw["causal"], enable_gqa=True)
+        o.backward(g)
+    lib = per_call_ms(sdpa, calls=10, reps=3)
+    print(f"K5 backward at {_k5_label(key)}: plain (mha_ref autograd, f32) "
+          f"{plain:.4f} ms; SDPA forward + backward {lib:.4f} ms [{smi}]",
+          flush=True)
+    return {"plain_backward_ms": plain, "sdpa_fwd_bwd_ms": lib}
+
+
+def _grads_of(cfg, model, batch):
+    """(total, loss, gradients as the reference's tree, numpy)."""
+    import numpy as np
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    (total, loss, _), grads = steps.value_and_grad(
+        steps.make_loss_fn(cfg), model, batch)
+    meta = [(p, l) for p, l, _ in lm.leaves(model)]
+    return float(total), float(loss), lm.nest(
+        meta, [g.detach().float().cpu().numpy() for g in grads], np.stack)
+
+
+def _hold_train_grads(got: dict, want: dict, tol: float, label: str) -> float:
+    """Every gradient leaf within ``tol`` of its largest entry (floor:
+    ``TRAIN_ZERO_GRAD_FLOOR`` of the model's largest); the worst ratio of
+    |diff| to that bound's scale."""
+    from repro_torch.ckpt.checkpoint import _flatten
+    flat_w, flat_g = _flatten(want), dict(_flatten(got))
+    top = max(float(abs(w).max()) for _, w in flat_w)
+    worst = 0.0
+    for key, w in flat_w:
+        scale = max(float(abs(w).max()), TRAIN_ZERO_GRAD_FLOOR * top)
+        err = float(abs(flat_g[key] - w).max())
+        if err > tol * scale:
+            fail(f"{label}: gradient {key} max |diff| {err} > {tol} x "
+                 f"{scale}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def train_step_card_vs_cpu(arch: str, dev, seed: int) -> dict:
+    """One f32 train step's loss and gradients of ``arch``'s smoke config
+    (remat on) on the card against the CPU, from the same weights and
+    batch: loss at rtol ``TRAIN_LOSS_RTOL``, every gradient leaf within
+    ``TRAIN_GRAD_TOL`` of its largest entry.  K5 runs its TF32 kernel (f32)
+    on the card."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(lm_archs.smoke(arch), dtype="float32")
+    cpu = steps.init_fn(cfg)(torch.Generator().manual_seed(seed), "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    b, s = TRAIN_SMOKE_BATCH
+    rs = np.random.RandomState(seed + 5)
+    toks = rs.randint(0, cfg.vocab, (b, s + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_enc_dec:
+        batch["audio_embed"] = rs.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)
+    build.reset_counters()
+    got = _grads_of(cfg, card, steps.batch_on(batch, dev))
+    torch.cuda.synchronize()
+    tf32 = build.launch_counts().get("flash_attention", 0)
+    want = _grads_of(cfg, cpu, steps.batch_on(batch, "cpu"))
+    if not math.isclose(got[1], want[1], rel_tol=TRAIN_LOSS_RTOL) or \
+            not math.isclose(got[0], want[0], rel_tol=TRAIN_LOSS_RTOL):
+        fail(f"{arch} smoke train step card vs CPU: loss {got[:2]} against "
+             f"{want[:2]}")
+    tol = TRAIN_GRAD_TOL.get(arch, TRAIN_GRAD_TOL_DEFAULT)
+    worst = _hold_train_grads(got[2], want[2], tol,
+                              f"{arch} smoke train step card vs CPU")
+    # one a self-attention layer (whisper: encoder, decoder and cross) a
+    # forward, twice with remat
+    want_k5 = 0 if cfg.family == "ssm" else (
+        cfg.encoder_layers + cfg.n_layers * (2 if cfg.is_enc_dec else 1)
+    ) * (2 if cfg.remat else 1)
+    print(f"{arch} smoke train step (f32, remat) card vs CPU: loss "
+          f"{got[1]:.7f} / {want[1]:.7f}, worst gradient |diff| "
+          f"{worst:.2e} of its leaf's largest (tolerance {tol}), K5 TF32 "
+          f"launches {tf32}", flush=True)
+    if tf32 != want_k5:
+        fail(f"{arch} smoke train step: K5 TF32 launched {tf32} times, not "
+             f"{want_k5}")
+    return {"loss_card": got[1], "loss_cpu": want[1], "total_card": got[0],
+            "total_cpu": want[0], "worst_grad_rel": worst, "tolerance": tol,
+            "k5_tf32_launches": tf32}
+
+
+def train_ckpt_replay(dev, seed: int, tmp: Path) -> dict:
+    """mixtral-8x22b's smoke config (f32) trained ``REPLAY_STEPS`` steps
+    through the loop on the card with async checkpoints every
+    ``REPLAY_CKPT_EVERY``, once uninterrupted and once with a failure
+    injected at step ``REPLAY_FAIL_AT`` (restore + replay): the final
+    parameters and moments agree within ``REPLAY_TOL`` (the report says
+    whether bit for bit, and names the ops PyTorch reports as
+    non-deterministic in one such step); the card's last checkpoint
+    restores on the CPU to the card's exact values."""
+    import dataclasses
+    import shutil
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs import lm_archs
+    from repro_torch.launch import steps
+    from repro_torch.train import loop, optim
+
+    cfg = dataclasses.replace(lm_archs.smoke("mixtral-8x22b"),
+                              dtype="float32")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    def run(name, fail_at=None, device=dev):
+        params = steps.init_fn(cfg)(torch.Generator().manual_seed(seed),
+                                    "cpu").to(device)
+        step = steps.make_train_step(cfg, opt_cfg=optim.AdamWConfig(
+            lr=3e-3, weight_decay=0.1))
+        pending = {fail_at}
+
+        def step_fn(p, o, batch):
+            if batch["step"] in pending:
+                pending.discard(batch["step"])
+                raise RuntimeError("injected failure")
+            return step(p, o, batch)
+
+        def batch_fn(s):
+            toks = np.random.RandomState(seed + s).randint(
+                0, cfg.vocab, (2, 33))
+            return dict(steps.batch_on({"tokens": toks[:, :-1],
+                                        "labels": toks[:, 1:]}, device),
+                        step=s)
+        state = loop.LoopState(params=params, opt_state=steps.opt_init(
+            params), codec=steps.StateCodec())
+        return loop.run(loop.LoopConfig(
+            total_steps=REPLAY_STEPS, ckpt_dir=str(tmp / name),
+            ckpt_every=REPLAY_CKPT_EVERY), state, step_fn, batch_fn), step
+
+    clean, step = run("clean")
+    replayed, _ = run("replayed", fail_at=REPLAY_FAIL_AT)
+    if replayed.failures != 1 or replayed.step != REPLAY_STEPS:
+        fail(f"checkpoint replay: {replayed.failures} failures, step "
+             f"{replayed.step}")
+    pairs = list(zip(
+        steps.train_leaves(clean.params) + clean.opt_state.m
+        + clean.opt_state.v, steps.train_leaves(replayed.params)
+        + replayed.opt_state.m + replayed.opt_state.v))
+    diff = max(float((a - b).detach().abs().max()) for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            toks = torch.randint(0, cfg.vocab, (2, 33), device=dev)
+            step(clean.params, clean.opt_state,
+                 {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    if diff > REPLAY_TOL:
+        fail(f"checkpoint replay: final state max |diff| {diff} > "
+             f"{REPLAY_TOL} (non-deterministic ops: {nondet})")
+    # the card's last checkpoint on the CPU
+    cpu = steps.init_fn(cfg)(torch.Generator().manual_seed(seed + 1), "cpu")
+    copt = steps.opt_init(cpu)
+    codec = steps.StateCodec()
+    tree, rstep = checkpoint.restore(str(tmp / "replayed"),
+                                     codec.to_tree(cpu, copt))
+    cpu, copt = codec.from_tree(tree, cpu, copt)
+    restored = all(torch.equal(a.cpu(), b) for a, b in zip(
+        steps.train_leaves(replayed.params) + replayed.opt_state.m
+        + replayed.opt_state.v, steps.train_leaves(cpu) + copt.m + copt.v))
+    if rstep != REPLAY_STEPS or copt.step != replayed.opt_state.step or \
+            not restored:
+        fail(f"the card's checkpoint of step {rstep} does not restore on the "
+             "CPU to the card's values")
+    print(f"checkpoint replay on the card (mixtral-8x22b smoke, f32, "
+          f"{REPLAY_STEPS} steps, failure at {REPLAY_FAIL_AT}): final state "
+          f"max |diff| {diff:.3e} against the uninterrupted run (bit for "
+          f"bit: {bitwise}); ops PyTorch names non-deterministic in a step: "
+          f"{nondet or 'none'}; the card's step-{rstep} checkpoint restores "
+          "on the CPU exactly", flush=True)
+    return {"steps": REPLAY_STEPS, "fail_at": REPLAY_FAIL_AT,
+            "max_abs_diff": diff, "bitwise": bitwise,
+            "nondeterministic_ops": nondet, "card_to_cpu_exact": restored,
+            "restored_step": rstep}
+
+
+def router_example(dev, seed: int) -> dict:
+    """``examples/torch_lut_router_moe.py`` at its own size on the card:
+    the MoE LM trained, its router distilled into a folded LUT tree and
+    plugged into ``moe.apply_moe``; fails below ``ROUTER_MIN_AGREEMENT``
+    top-1 agreement or on a non-finite MoE error."""
+    import importlib.util
+    path = ROOT / "examples" / "torch_lut_router_moe.py"
+    spec = importlib.util.spec_from_file_location("torch_lut_router_moe",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    out = mod.run(dev, seed=seed,
+                  log=lambda msg: print(f"router example: {msg.strip()}",
+                                        flush=True))
+    out["seconds"] = time.perf_counter() - t0
+    if not out["routing_agreement"] >= ROUTER_MIN_AGREEMENT or \
+            not math.isfinite(out["moe_rel_diff"]) or \
+            not out["lm_loss_last"] < out["lm_loss_first"]:
+        fail(f"router example: {out}")
+    return out
+
+
+def train_phase(dev, smi: str, seed: int, art_dir: Path) -> dict:
+    """Slice 12's main path: LM training.  Full-width gemma-2b through the
+    loop and whisper-small through the CLI (K5's wgmma kernel in every
+    training forward, held against the plain version, its gradient against
+    ``mha_ref``'s, and timed beside SDPA and the plain backward); one f32
+    smoke train step of five families on the card against the CPU; the
+    checkpoint replay and card-to-CPU restore; the router example."""
+    t0 = time.perf_counter()
+    out, rows = {}, []
+    out["gemma-2b"], grec = train_gemma(dev, smi, seed)
+    out["whisper-small"], wrec = train_whisper(dev, smi)
+    out["k5_held"] = {"gemma-2b train": hold_k5_record(grec, "gemma-2b train"),
+                      "whisper-small train": hold_k5_record(
+                          wrec, "whisper-small train")}
+    gkey = _largest(grec, True)
+    out["k5_grad"] = {"gemma-2b train": k5_train_grads(
+        grec, gkey, seed, "gemma-2b train")}
+    row = k5_layout_row("gemma-2b train layer", "gemma-2b train", grec, gkey,
+                        smi)
+    row.update(k5_backward_times(grec, gkey, smi))
+    rows.append(row)
+    for name, causal, sq_max in (
+            # the encoder's layout is also the cross attention's (Sq = S_enc
+            # here; a non-causal launch takes q_offset 0)
+            ("whisper-small train, encoder and cross-attention layer", False,
+             None),
+            ("whisper-small train, decoder layer", True, None)):
+        key = _largest(wrec, causal, sq_max)
+        out["k5_grad"][name] = k5_train_grads(wrec, key, seed, name)
+        rows.append(k5_layout_row(name, "whisper-small train", wrec, key,
+                                  smi))
+    out["card_vs_cpu"] = {a: train_step_card_vs_cpu(a, dev, seed)
+                          for a in TRAIN_SMOKE_ARCHS}
+    out["replay"] = train_ckpt_replay(dev, seed, art_dir / "train_ckpt")
+    out["router"] = router_example(dev, seed)
+    out["kernels"] = rows
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12 (LM training): {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main(seed: int) -> dict:
     """Run every phase; return the report (exits on the first failure)."""
     import numpy as np
@@ -3763,6 +4277,9 @@ def main(seed: int) -> dict:
     # -- phase 11: the remaining LM families (slice 11) ------------------------
     report["families"] = families_phase(dev, smi, seed)
 
+    # -- phase 12: LM training (slice 12) --------------------------------------
+    report["train"] = train_phase(dev, smi, seed, art_dir)
+
     for k in kernels:
         if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
@@ -3827,6 +4344,11 @@ def main(seed: int) -> dict:
     # the remaining LM families' new call shapes: K5 at each new layout, K1
     # and K3 at the LUT time-mix cell, launches of their main paths' runs
     for k in report["families"]["kernels"]:
+        kernels.append(dict(k, route="cuda", source=SOURCES[k["name"]],
+                            replaces=REPLACES[k["name"]]))
+    # LM training's K5 layouts: launches of the training runs (forward and
+    # remat's recompute; the backward launches none)
+    for k in report["train"]["kernels"]:
         kernels.append(dict(k, route="cuda", source=SOURCES[k["name"]],
                             replaces=REPLACES[k["name"]]))
     report["kernels"] = kernels
@@ -3895,6 +4417,24 @@ if __name__ == "__main__":
         "f32_card_vs_cpu": {a: v["card_vs_cpu_max_abs_diff"]
                             for a, v in fa["f32_cut"].items()},
         "seconds": fa["seconds"]}}))
+    tr = rep["train"]
+    print(json.dumps({"lm_train": {
+        "gemma-2b": {key: tr["gemma-2b"][key] for key in (
+            "params", "batch", "seq", "losses", "step_ms_median_2_5",
+            "batch_fn_s", "tokens_per_s", "peak_bytes",
+            "k5_launches_per_step")},
+        "gemma-2b_idle_share": tr["gemma-2b"]["profiled_step"][
+            "device_idle_share"],
+        "whisper-small": {key: tr["whisper-small"][key] for key in (
+            "losses", "k5_launches_per_step")},
+        "card_vs_cpu_worst_grad": {a: v["worst_grad_rel"]
+                                   for a, v in tr["card_vs_cpu"].items()},
+        "replay": {key: tr["replay"][key] for key in (
+            "max_abs_diff", "bitwise", "nondeterministic_ops",
+            "card_to_cpu_exact")},
+        "router": {key: tr["router"][key] for key in (
+            "routing_agreement", "moe_rel_diff")},
+        "seconds": tr["seconds"]}}))
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

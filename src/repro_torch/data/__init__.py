@@ -1,1 +1,1 @@
-"""Datasets of the port (numpy only)."""
+"""Datasets and the LM token corpus of the port (numpy only)."""

@@ -23,8 +23,17 @@ one from dtypes, shapes, strides and alignment alone:
 
 Both are bound by operations (4.3 GFLOP at gemma-2b's 1024-token prefill).
 A route is a choice, not a fallback: a failed build or launch of either
-kernel raises.  There is no backward: the reference has none for this
-kernel, and the gradient comes with LM training.
+kernel raises.
+
+The gradient (:class:`FlashAttentionFn`, taken whenever q, k or v
+requires one) is plain PyTorch: the backward recomputes the plain
+version's autograd (``ref.mha_ref``, f32 scores and softmax) on the saved
+q, k and v and launches no kernel.  The reference has no backward kernel
+either: its Pallas K5 is forward only, and its training gradient is
+``jax.grad`` of the f32-accumulating attention scan.  So K5 stays the
+forward on the card (ROADMAP A.14b); a hand-written backward kernel is a
+choice to measure against this one.  The backward holds one layer's
+``[B, Hq, Sq, Skv]`` f32 scores (134 MB at gemma-2b's ``[4, 8, 1024]``).
 
 On a CPU tensor the plain version (``ref.mha_ref``) runs; on a CUDA tensor
 a kernel runs or the wrapper raises.
@@ -49,10 +58,51 @@ WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _no_grad(q, k, v, what: str) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(f"{what} has no backward: call it under "
-                           "torch.inference_mode() or torch.no_grad()")
+def _needs_grad(q, k, v) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+
+
+def attention_grads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    grad_o: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv of the plain version at (q, k, v) for the output gradient
+    ``grad_o``: its autograd in f32 (``mha_ref``'s type inside), each
+    returned in its input's type."""
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        o = mha_ref(*leaves, causal=causal, window=window, q_offset=q_offset)
+        grads = torch.autograd.grad(o, leaves, grad_o.float())
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K5 with a gradient: the forward is ``forward(q, k, v)`` (a kernel on
+    CUDA tensors, the plain version on CPU tensors), the backward
+    :func:`attention_grads` on the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, forward, causal, window, q_offset):
+        """Run ``forward`` and keep q, k, v for the backward."""
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset)
+        return forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        """dq, dk, dv by the plain version; no kernel runs."""
+        return (*attention_grads(*ctx.saved_tensors, grad_o, **ctx.kw),
+                None, None, None, None)
+
+
+def _apply(forward, q, k, v, causal, window, q_offset) -> torch.Tensor:
+    """``forward(q, k, v)``, through :class:`FlashAttentionFn` when a
+    gradient is wanted."""
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, forward, causal, window,
+                                      q_offset)
+    return forward(q, k, v)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,7 +114,6 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check(q, k, v, what: str, window: Optional[int]) -> None:
     """What both kernels require of their operands; raises otherwise."""
-    _no_grad(q, k, v, what)
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError(f"{what}: q, k and v must be on one CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -130,7 +179,8 @@ def flash_attention_tf32_cuda(q: torch.Tensor, k: torch.Tensor,
     D a multiple of 8 up to 256 -> ``[B, Hq, Sq, D]`` contiguous in q's
     type."""
     _check(q, k, v, "flash_attention_tf32_cuda", window)
-    return _launch_tf32(q, k, v, causal, window, q_offset)
+    return _apply(lambda *t: _launch_tf32(*t, causal, window, q_offset),
+                  q, k, v, causal, window, q_offset)
 
 
 def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -148,7 +198,9 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention_wgmma_cuda takes bf16 q, k, v with "
                          f"a head dim in {WGMMA_HEAD_DIMS}, 16 B aligned, "
                          "with strides that are positive multiples of 16 B")
-    return _launch_wgmma(q, k, v, causal, window, q_offset, split_p)
+    return _apply(lambda *t: _launch_wgmma(*t, causal, window, q_offset,
+                                           split_p),
+                  q, k, v, causal, window, q_offset)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -158,8 +210,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_tf32_cuda` for what both take)."""
     _check(q, k, v, "flash_attention_cuda", window)
     if route(q, k, v) == WGMMA:
-        return _launch_wgmma(q, k, v, causal, window, q_offset, True)
-    return _launch_tf32(q, k, v, causal, window, q_offset)
+        return _apply(lambda *t: _launch_wgmma(*t, causal, window, q_offset,
+                                               True),
+                      q, k, v, causal, window, q_offset)
+    return _apply(lambda *t: _launch_tf32(*t, causal, window, q_offset),
+                  q, k, v, causal, window, q_offset)
 
 
 def copy_width(*ts: torch.Tensor) -> int:
@@ -217,10 +272,11 @@ def _launch_wgmma(q, k, v, causal, window, q_offset, split_p) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """K5 on CUDA tensors, its plain version on CPU tensors (forward only)."""
+    """K5 on CUDA tensors, its plain version on CPU tensors; either with
+    :class:`FlashAttentionFn`'s gradient when one is wanted."""
     if q.device.type == "cpu":
-        _no_grad(q, k, v, "flash_attention")
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
+        return _apply(lambda *t: flash_attention_plain(
+            *t, causal=causal, window=window, q_offset=q_offset),
+            q, k, v, causal, window, q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)

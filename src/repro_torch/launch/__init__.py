@@ -1,1 +1,1 @@
-"""Command-line entry points of the port (``repro.launch``)."""
+"""Command-line entry points and step builders of the port (``repro.launch``)."""

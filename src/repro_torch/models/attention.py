@@ -174,7 +174,8 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
 def attention_train(p: Attention, spec: AttnSpec, x: torch.Tensor,
                     positions: Positions, freqs: Optional[torch.Tensor]
                     ) -> torch.Tensor:
-    """Full-sequence attention (forward only). x ``[B, S, D]``."""
+    """Full-sequence attention (training, whisper's encoder). x ``[B, S,
+    D]``; differentiable (K5's ``FlashAttentionFn``)."""
     q, k, v = _project_qkv(p, spec, x, positions, freqs)
     o = flash_scan(q, k, v, causal=spec.causal, window=spec.window,
                    q_positions=positions, k_positions=positions)

@@ -1,9 +1,9 @@
 """The causal LM (``repro.models.lm``) for the ``dense``, ``vlm``, ``moe``,
 ``ssm`` (RWKV-6) and ``hybrid`` (hymba) families: prefill (attention
 through the flash kernel K5), ring-cache decode with the recurrent states
-of the ``ssm`` and ``hybrid`` families, and the training forward (forward
-only).  The ``audio`` family (whisper) is an encoder-decoder and lives in
-``models/whisper.py``, as in the reference.
+of the ``ssm`` and ``hybrid`` families, and the training forward with its
+gradient.  The ``audio`` family (whisper) is an encoder-decoder and lives
+in ``models/whisper.py``, as in the reference.
 
 Parameters live in f32 in an :class:`LM` module, one layer module per
 layer (a :class:`Block` of attention and FFN, MoE or SSM branch, or an
@@ -11,9 +11,14 @@ layer (a :class:`Block` of attention and FFN, MoE or SSM branch, or an
 reference's ``lax.scan`` over stacked ``[L, ...]`` leaves.  The reference
 casts the layers to the compute type on every call (``_cast_blocks``),
 f32-only leaves such as RWKV's decay base and the SSM's ``log(-A)``
-included; the port makes that copy once (:func:`compute_copy`, done when a
-serving engine is built), and every entry point given the f32 module in a
-bf16 config makes it first, with the same numbers.
+included.  Serving makes that copy once (:func:`compute_copy`, done when a
+serving engine is built), and every serving entry point given the f32
+module in a bf16 config makes it first, with the same numbers.  Training
+casts inside the autograd graph on every call (:func:`cast_view`), so the
+gradient reaches the f32 masters.
+
+Parameters are created frozen (``requires_grad=False``), so serving
+records no graph; :func:`trainable` turns them on for training.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.models import attention, ffn, layers, moe, rwkv, ssm
@@ -216,20 +222,6 @@ def compute_copy(model: LM, cfg: ArchConfig, device=None) -> LM:
     return _rebuild(cfg, model.get_parameter, dev, dt)
 
 
-def stack_layers(mods: nn.ModuleList) -> Dict:
-    """The reference's layout of a layer stack: a nested dict of numpy f32
-    arrays, each leaf the layers' tensors stacked on a leading ``[L]``."""
-    out: Dict = {}
-    for name, _ in mods[0].named_parameters():
-        *path, leaf = name.split(".")
-        node = out
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = np.stack([m.get_parameter(name).detach().float().cpu()
-                               .numpy() for m in mods])
-    return out
-
-
 def tree_getter(tree: dict) -> Callable[[str], torch.Tensor]:
     """``get(path)`` over a reference parameter pytree: ``"embed"`` is
     ``tree["embed"]``, ``"blocks.3.attn.wq"`` is
@@ -245,18 +237,57 @@ def tree_getter(tree: dict) -> Callable[[str], torch.Tensor]:
     return get
 
 
-def params_to_reference(model: LM) -> dict:
-    """The reference's parameter pytree as numpy f32 arrays, per-layer
-    leaves stacked on a leading ``[L]`` axis."""
-    def np_(t):
-        return t.detach().float().cpu().numpy()
+def trainable(model: nn.Module) -> nn.Module:
+    """``model`` with every parameter taking a gradient (in place)."""
+    return model.requires_grad_(True)
 
-    tree: Dict = {"embed": np_(model.embed),
-                  "final_norm": np_(model.final_norm),
-                  "blocks": stack_layers(model.blocks)}
-    if model.lm_head is not None:
-        tree["lm_head"] = np_(model.lm_head)
+
+def leaves(model: nn.Module) -> List[Tuple[Tuple[str, ...], Optional[int],
+                                           nn.Parameter]]:
+    """Every parameter of an :class:`LM` or a ``whisper.Whisper`` as
+    ``(reference path, layer, tensor)`` in the reference's tree order
+    (``jax.tree`` sorts dict keys): a per-layer leaf (``blocks.3.attn.wq``)
+    is the path ``("blocks", "attn", "wq")`` at layer 3, a leaf's layers
+    one after another; a model-level leaf has layer None.  The order in
+    which the optimizer walks the leaves, so that its global norm sums them
+    as the reference's does."""
+    out = []
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if len(parts) > 1 and parts[1].isdigit():
+            out.append(((parts[0], *parts[2:]), int(parts[1]), p))
+        else:
+            out.append((tuple(parts), None, p))
+    out.sort(key=lambda e: (e[0], -1 if e[1] is None else e[1]))
+    return out
+
+
+def nest(paths: List[Tuple[Tuple[str, ...], Optional[int]]],
+         values: List, stack: Callable) -> Dict:
+    """The reference's nested tree of ``values`` (one a :func:`leaves`
+    entry): each per-layer leaf's values joined by ``stack`` (``np.stack``,
+    ``torch.stack``) on a leading ``[L]`` axis."""
+    tree: Dict = {}
+    groups: Dict = {}
+    for (path, layer), v in zip(paths, values):
+        groups.setdefault(path, []).append((layer, v))
+    for path, vals in groups.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = vals[0][1] if vals[0][0] is None else \
+            stack([v for _, v in vals])
     return tree
+
+
+def params_to_reference(model: nn.Module) -> dict:
+    """The reference's parameter pytree of an :class:`LM` or a
+    ``whisper.Whisper`` as numpy f32 arrays, per-layer leaves stacked on a
+    leading ``[L]`` axis."""
+    entries = leaves(model)
+    return nest([(path, layer) for path, layer, _ in entries],
+                [p.detach().float().cpu().numpy() for _, _, p in entries],
+                np.stack)
 
 
 @torch.no_grad()
@@ -357,11 +388,17 @@ def final_hidden(model: LM, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return layers.rms_norm(x, model.final_norm, plus_one=cfg.norm_plus_one)
 
 
+def head_matrix(model: LM, cfg: ArchConfig) -> torch.Tensor:
+    """The f32 output projection ``[D, padded_vocab]``: the transposed
+    embeddings when they are tied, else ``lm_head``."""
+    return model.embed.T if cfg.tie_embeddings else model.lm_head
+
+
 def logits_at(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """h ``[..., D]`` -> ``[..., padded_vocab]`` f32 logits, the padded
     entries at -1e30."""
-    head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    return mask_padded_vocab(cfg, (h @ head.to(compute_dtype(cfg))).float())
+    head = head_matrix(model, cfg).to(compute_dtype(cfg))
+    return mask_padded_vocab(cfg, (h @ head).float())
 
 
 def mask_padded_vocab(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -385,27 +422,93 @@ def _rwkv_state(cfg: ArchConfig, batch: int, device) -> rwkv.RWKVState:
 # forward passes
 # ---------------------------------------------------------------------------
 
-@torch.inference_mode()
+class _CastView:
+    """A module read through a cast: each floating tensor attribute reads
+    as ``.to(dtype)`` (a node of the autograd graph), each submodule as a
+    view of its own; anything else as it is."""
+
+    __slots__ = ("_module", "_dtype")
+
+    def __init__(self, module: nn.Module, dtype: torch.dtype):
+        self._module, self._dtype = module, dtype
+
+    def __getattr__(self, name: str):
+        v = getattr(self._module, name)
+        if isinstance(v, nn.Module):
+            return _CastView(v, self._dtype)
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.to(self._dtype)
+        return v
+
+
+def cast_view(module: nn.Module, dtype: torch.dtype):
+    """``module`` with every floating parameter read in ``dtype`` on each
+    use, inside the autograd graph: the reference's ``_cast_blocks``
+    without a copy that would cut the gradient from the f32 masters."""
+    return _CastView(module, dtype)
+
+
+def _remat(cfg: ArchConfig, layers_: List[Callable], x: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``layer(x) -> (x, aux)`` for each layer, summing the aux terms,
+    with the reference's remat: with ``cfg.remat`` each layer's forward is
+    recomputed in the backward (one checkpoint a layer); with
+    ``cfg.remat_group = k > 1`` each group of k layers is checkpointed too,
+    so only every k-th layer's input is kept (the reference's two-level
+    remat).  Without a gradient the layers just run."""
+    grad = torch.is_grad_enabled()
+
+    def run(fns, x):
+        aux = torch.zeros((), device=x.device)
+        for fn in fns:
+            x, a = checkpoint(fn, x, use_reentrant=False) \
+                if grad and cfg.remat else fn(x)
+            aux = aux + a
+        return x, aux
+
+    k = cfg.remat_group
+    if k <= 1 or not grad:
+        return run(layers_, x)
+    if len(layers_) % k:
+        raise ValueError(f"remat_group {k} does not divide the "
+                         f"{len(layers_)} layers")
+    aux = torch.zeros((), device=x.device)
+    for i in range(0, len(layers_), k):
+        x, a = checkpoint(run, layers_[i:i + k], x, use_reentrant=False)
+        aux = aux + a
+    return x, aux
+
+
 def forward_train(model: LM, cfg: ArchConfig, tokens: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens ``[B, S]`` -> (final hidden ``[B, S, D]``, aux loss: the sum
-    of the MoE layers' load-balancing terms, else 0).  Forward only: K5
-    has no backward in this port yet."""
+    of the MoE layers' load-balancing terms, else 0), differentiable with
+    respect to the f32 parameters of ``model``.  Each layer reads its
+    parameters cast to the compute type (:func:`cast_view`); the remat is
+    ``cfg.remat`` / ``cfg.remat_group``'s.  Each attention layer's forward
+    is one K5 launch on the card (two with remat: the backward recomputes
+    it), its backward plain PyTorch."""
     _check_family(cfg)
-    model = compute_copy(model, cfg)
+    dt = compute_dtype(cfg)
     x = _embed(model, cfg, tokens)
-    aux = torch.zeros((), device=x.device)
+    blocks = [cast_view(blk, dt) for blk in model.blocks]
     if cfg.family == "ssm":
         state0 = _rwkv_state(cfg, tokens.shape[0], tokens.device)
-        for blk in model.blocks:
-            x, _ = rwkv.rwkv_block(blk, rwkv_spec(cfg), x, state0)
-        return final_hidden(model, cfg, x), aux
-    positions = range(tokens.shape[1])
-    freqs = _freqs(cfg, tokens.device)
-    for blk in model.blocks:
-        x, a = _block_train(cfg, blk, x, positions, freqs)
-        aux = aux + a
+
+        def layer(blk):
+            def fn(x):
+                y, _ = rwkv.rwkv_block(blk, rwkv_spec(cfg), x, state0)
+                return y, torch.zeros((), device=y.device)
+            return fn
+    else:
+        positions = range(tokens.shape[1])
+        freqs = _freqs(cfg, tokens.device)
+
+        def layer(blk):
+            return lambda x: _block_train(cfg, blk, x, positions, freqs)
+    x, aux = _remat(cfg, [layer(blk) for blk in blocks], x)
     return final_hidden(model, cfg, x), aux
+
 
 
 def init_decode_cache(model: LM, cfg: ArchConfig, batch: int,

@@ -13,8 +13,10 @@ decoding).
 Decoding is lock-step: one scalar position for every row, a ring cache
 ``[W]`` of positions, and the cross K/V computed once at prefill from the
 encoder output.  The reference casts each weight to the compute type where
-it is used (every use, final norms included); the port casts the whole
-model once (:func:`compute_copy`), with the same numbers.
+it is used (every use, final norms included); the port's serving entry
+points cast the whole model once (:func:`compute_copy`), with the same
+numbers, and :func:`forward_train` reads the f32 weights through those
+casts, so its gradient reaches them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.models import attention, ffn, layers, lm
@@ -134,11 +137,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 def params_to_reference(model: Whisper) -> dict:
     """The reference's parameter pytree as numpy f32 arrays (``enc`` and
     ``dec`` leaves stacked on a leading layer axis)."""
-    tree = {name: p.detach().float().cpu().numpy()
-            for name, p in model.named_parameters() if "." not in name}
-    tree["enc"] = lm.stack_layers(model.enc)
-    tree["dec"] = lm.stack_layers(model.dec)
-    return tree
+    return lm.params_to_reference(model)
 
 
 @torch.no_grad()
@@ -167,24 +166,43 @@ def _ln(x: torch.Tensor, blk: nn.Module, name: str) -> torch.Tensor:
     return layers.layer_norm(x, getattr(blk, name), getattr(blk, name + "_b"))
 
 
-@torch.inference_mode()
-def encode(model: Whisper, cfg: ArchConfig, audio_embed: torch.Tensor
-           ) -> torch.Tensor:
-    """audio_embed ``[B, S_enc, D]`` (the stub frontend's output) -> the
-    encoder states ``[B, S_enc, D]`` in the compute type."""
-    _check(cfg)
-    model = compute_copy(model, cfg)
+def _layers(cfg: ArchConfig, fns, x: torch.Tensor) -> torch.Tensor:
+    """``x`` through each ``fn(x) -> x``; with ``cfg.remat`` and a gradient
+    wanted, each layer's forward is recomputed in the backward (the
+    reference's ``_scan``)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for fn in fns:
+        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    return x
+
+
+def _encode(model: Whisper, cfg: ArchConfig, audio_embed: torch.Tensor
+            ) -> torch.Tensor:
     dt = lm.compute_dtype(cfg)
     _, s, d = audio_embed.shape
     x = audio_embed.to(dt) + layers.sinusoidal_positions(
         s, d, device=audio_embed.device).to(dt)[None]
     spec = attn_spec(cfg, causal=False)
     positions = range(s)
-    for blk in model.enc:
-        x = x + attention.attention_train(blk.attn, spec, _ln(x, blk, "ln1"),
-                                          positions, None)
-        x = x + ffn.apply_ffn(blk.ffn, ffn_spec(cfg), _ln(x, blk, "ln2"))
+
+    def layer(blk):
+        def fn(x):
+            x = x + attention.attention_train(
+                blk.attn, spec, _ln(x, blk, "ln1"), positions, None)
+            return x + ffn.apply_ffn(blk.ffn, ffn_spec(cfg),
+                                     _ln(x, blk, "ln2"))
+        return fn
+    x = _layers(cfg, [layer(blk) for blk in model.enc], x)
     return layers.layer_norm(x, model.enc_final_norm, model.enc_final_norm_b)
+
+
+@torch.inference_mode()
+def encode(model: Whisper, cfg: ArchConfig, audio_embed: torch.Tensor
+           ) -> torch.Tensor:
+    """audio_embed ``[B, S_enc, D]`` (the stub frontend's output) -> the
+    encoder states ``[B, S_enc, D]`` in the compute type."""
+    _check(cfg)
+    return _encode(compute_copy(model, cfg), cfg, audio_embed)
 
 
 def _decoder_embed(model: Whisper, cfg: ArchConfig, tokens: torch.Tensor,
@@ -195,16 +213,20 @@ def _decoder_embed(model: Whisper, cfg: ArchConfig, tokens: torch.Tensor,
     return x + model.dec_pos[pos].to(dt)[None]
 
 
-@torch.inference_mode()
-def cross_kv(model: Whisper, cfg: ArchConfig, enc_out: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every decoder layer's cross K/V: ``[L, B, Hkv, S_enc, hd]`` x2."""
-    model = compute_copy(model, cfg)
+def _cross_kv(model: Whisper, cfg: ArchConfig, enc_out: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     spec = attn_spec(cfg, causal=False)
     kvs = [attention.project_kv(blk.cross_attn, spec, enc_out)
            for blk in model.dec]
     return (torch.stack([k for k, _ in kvs]),
             torch.stack([v for _, v in kvs]))
+
+
+@torch.inference_mode()
+def cross_kv(model: Whisper, cfg: ArchConfig, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross K/V: ``[L, B, Hkv, S_enc, hd]`` x2."""
+    return _cross_kv(compute_copy(model, cfg), cfg, enc_out)
 
 
 def _logits(model: Whisper, cfg: ArchConfig, x_last: torch.Tensor
@@ -231,19 +253,31 @@ def _decoder(model: Whisper, cfg: ArchConfig, x: torch.Tensor,
     return x, extras
 
 
-@torch.inference_mode()
 def forward_train(model: Whisper, cfg: ArchConfig, audio_embed: torch.Tensor,
                   tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced decoder hidden states ``[B, S_dec, D]`` and a zero
-    aux loss (forward only)."""
-    model = compute_copy(model, cfg)
-    ck, cv = cross_kv(model, cfg, encode(model, cfg, audio_embed))
+    aux loss, differentiable with respect to the f32 parameters (each cast
+    at its use, as the reference casts).  On the card the encoder's
+    attention is K5 non-causal, the decoder's causal and the cross
+    attention non-causal at ``q_offset = S_enc``; with ``cfg.remat`` each
+    encoder and decoder layer is recomputed in the backward."""
+    _check(cfg)
+    ck, cv = _cross_kv(model, cfg, _encode(model, cfg, audio_embed))
     x = _decoder_embed(model, cfg, tokens, 0)
     spec = attn_spec(cfg, causal=True)
+    cross_spec = attn_spec(cfg, causal=False)
     positions = range(tokens.shape[1])
-    x, _ = _decoder(model, cfg, x, ck, cv, lambda blk, l, h: (
-        attention.attention_train(blk.self_attn, spec, h, positions, None),
-        None))
+
+    def layer(l, blk):
+        def fn(x):
+            x = x + attention.attention_train(
+                blk.self_attn, spec, _ln(x, blk, "ln1"), positions, None)
+            x = x + attention.cross_attention(
+                blk.cross_attn, cross_spec, _ln(x, blk, "ln2"), ck[l], cv[l])
+            return x + ffn.apply_ffn(blk.ffn, ffn_spec(cfg),
+                                     _ln(x, blk, "ln3"))
+        return fn
+    x = _layers(cfg, [layer(l, blk) for l, blk in enumerate(model.dec)], x)
     h = layers.layer_norm(x, model.final_norm, model.final_norm_b)
     return h, torch.zeros((), device=x.device)
 

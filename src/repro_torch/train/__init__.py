@@ -1,1 +1,1 @@
-"""Training: optimizer, losses and the LUT-model trainer."""
+"""Training: optimizer, losses, the LUT-model trainer and the LM loop."""

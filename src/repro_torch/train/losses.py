@@ -1,8 +1,69 @@
-"""Losses and accuracies of the LUT-model classifiers
-(``repro.train.losses``; the LM's chunked loss waits for the LM substrate)."""
+"""Losses (``repro.train.losses``): the LM's vocab-chunked cross-entropy,
+and the losses and accuracies of the LUT-model classifiers.
+
+The LM loss never holds the ``[B, S, vocab]`` logits: it walks sequence
+chunks, each computing its logits and log-sum-exp and adding its summed
+NLL, so the live logits are ``B x chunk x padded_vocab`` f32 (2.1 GB at
+gemma-2b's 4 x 512 x 256,000).  Each chunk runs under
+``torch.utils.checkpoint``, the counterpart of the reference's
+``nothing_saveable`` policy: autograd keeps no chunk's logits, and the
+backward recomputes one chunk at a time.
+"""
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
+
+IGNORE = -1  # label value that is masked out
+
+
+def _chunk_nll(h: torch.Tensor, head: torch.Tensor, lab: torch.Tensor,
+               vocab: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Summed NLL and token count of one chunk: h ``[B, C, D]``, head
+    ``[D, Vp]`` in h's type, lab ``[B, C]``."""
+    logits = (h @ head).float()                               # [B, C, Vp]
+    vp = head.shape[-1]
+    if vp != vocab:      # padded vocab columns
+        pad = torch.arange(vp, device=h.device) >= vocab
+        logits = torch.where(pad, torch.full((), -1e30, device=h.device),
+                             logits)
+    lse = torch.logsumexp(logits, dim=-1)                     # [B, C]
+    gold = logits.gather(-1, lab.clamp(0, vocab - 1).long()[..., None])
+    mask = (lab != IGNORE).float()
+    return ((lse - gold[..., 0]) * mask).sum(), mask.sum()
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, *, vocab: int,
+                          chunk: int = 512
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hidden ``[B, S, D]``; head ``[D, Vp]``; labels ``[B, S]`` int.
+
+    Returns (mean NLL over the labels that are not :data:`IGNORE`, their
+    count), both f32 scalars.  S is padded to a multiple of the chunk with
+    ignored labels; the padded vocab columns are masked to -1e30; an
+    ignored label's gold index is clipped into range and its NLL masked.
+    """
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=IGNORE)
+    head_c = head.to(hidden.dtype)
+    grad = torch.is_grad_enabled()
+    total = torch.zeros((), device=hidden.device)
+    count = torch.zeros((), device=hidden.device)
+    for i in range(0, hidden.shape[1], chunk):
+        args = (hidden[:, i:i + chunk], head_c, labels[:, i:i + chunk], vocab)
+        nll, n = checkpoint(_chunk_nll, *args, use_reentrant=False) \
+            if grad else _chunk_nll(*args)
+        total = total + nll
+        count = count + n
+    return total / torch.clamp(count, min=1.0), count
 
 
 def softmax_cross_entropy(logits: torch.Tensor,

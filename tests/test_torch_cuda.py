@@ -398,8 +398,14 @@ def test_flash_attention_window_and_refusals(cuda):
                                                    cuda))
     with pytest.raises(TypeError, match="float32"):
         flash_attention.flash_attention_cuda(q.half(), k.half(), v.half())
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_attention.flash_attention_cuda(q.requires_grad_(), k, v)
+    # a gradient is the plain version's, whichever kernel ran forward (the
+    # KV heads' gradient sums the group's terms in no fixed order on CUDA)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention.flash_attention_cuda(*leaves, window=256).sum().backward()
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention.flash_attention_plain(*ref, window=256).sum().backward()
+    for got, want in zip(leaves, ref):
+        torch.testing.assert_close(got.grad, want.grad, rtol=1e-5, atol=1e-5)
 
 
 # K5's TF32 kernel: (b, hq, hkv, sq, skv, d, causal, window, q_offset) at
@@ -1079,3 +1085,86 @@ def test_new_family_smoke_on_card_matches_cpu(arch, cuda):
     if cfg.family == "moe":
         for g, again in zip(got, run(card, cuda)):
             assert torch.equal(g, again)
+
+
+# K5 at the training layouts (b, hq, hkv, s_q, s_kv, d, causal): gemma-2b's
+# [., 8, 1024, 256] on 1 KV head (one row of the 4-row step), whisper-small's
+# encoder / cross attention and decoder at 512 tokens
+TRAIN_K5_LAYOUTS = [(1, 8, 1, 1024, 1024, 256, True),
+                    (2, 12, 12, 512, 512, 64, False),
+                    (2, 12, 12, 512, 512, 64, True)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", TRAIN_K5_LAYOUTS)
+def test_flash_attention_function_at_training_layouts(b, hq, hkv, sq, skv, d,
+                                                      causal, cuda):
+    """K5 with a gradient on the card: the forward through
+    ``FlashAttentionFn`` is one wgmma launch within one bf16 ulp of the
+    plain version; the backward launches nothing, and its dq/dk/dv equal
+    ``mha_ref``'s f32 autograd rounded to bf16 within one bf16 ulp (the
+    KV heads' sums run in no fixed order on CUDA)."""
+    from repro_torch.kernels.ref import mha_ref
+    q, k, v = (t.to(torch.bfloat16) for t in
+               _qkv(b, hq, hkv, sq, skv, d, sq + hq, cuda))
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)   # the model's view
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    build.reset_counters()
+    o = flash_attention.flash_attention_cuda(*leaves, causal=causal)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[flash_attention.WGMMA] == 1
+    torch.testing.assert_close(
+        o.detach().float(),
+        flash_attention.flash_attention_plain(q, k, v, causal=causal).float(),
+        rtol=2 ** -7, atol=1e-5)
+    g = torch.randn(o.shape, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(1)).to(o.dtype)
+    build.reset_counters()
+    o.backward(g)
+    torch.cuda.synchronize()
+    assert sum(build.launch_counts().values()) == 0
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    mha_ref(*ref, causal=causal).backward(g.float())
+    for got, want in zip(leaves, ref):
+        assert got.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(got.grad.float(),
+                                   want.grad.to(torch.bfloat16).float(),
+                                   rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "whisper-small"])
+def test_train_step_on_card_matches_cpu(arch, cuda):
+    """One f32 smoke train step (remat on) on the card against the CPU from
+    the same weights and batch: loss at rtol 1e-5, each gradient leaf
+    within 1e-4 of its largest entry (a leaf whose exact gradient is 0
+    against 1e-3 of the model's largest), K5's TF32 kernel in every
+    attention forward and recompute; then the AdamW update itself."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import lm_archs
+    from repro_torch.launch import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(lm_archs.smoke(arch), dtype="float32")
+    cpu = steps.init_fn(cfg)(torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rs = np.random.RandomState(3)
+    toks = rs.randint(0, cfg.vocab, (2, 25))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_enc_dec:
+        batch["audio_embed"] = rs.standard_normal(
+            (2, 24, cfg.d_model)).astype(np.float32)
+    loss_fn = steps.make_loss_fn(cfg)
+    build.reset_counters()
+    (total, loss, _), grads = steps.value_and_grad(
+        loss_fn, card, steps.batch_on(batch, cuda))
+    torch.cuda.synchronize()
+    forwards = cfg.encoder_layers + cfg.n_layers * (2 if cfg.is_enc_dec
+                                                    else 1)
+    assert build.launch_counts()[flash_attention.TF32] == 2 * forwards
+    (ctotal, closs, _), cgrads = steps.value_and_grad(
+        loss_fn, cpu, steps.batch_on(batch, "cpu"))
+    torch.testing.assert_close(loss.cpu(), closs, rtol=1e-5, atol=0)
+    torch.testing.assert_close(total.cpu(), ctotal, rtol=1e-5, atol=0)
+    top = max(float(g.abs().max()) for g in cgrads)
+    for got, want in zip(grads, cgrads):
+        scale = max(float(want.abs().max()), 1e-3 * top)
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale

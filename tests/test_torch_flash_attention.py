@@ -106,8 +106,14 @@ def test_ops_dispatch_cpu_takes_the_plain_path():
         flash_attention.flash_attention_cuda(q, k, v)
     with pytest.raises(ValueError, match="unknown"):
         ops.flash_attention(q, k, v, impl="mxu")
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.flash_attention(q.requires_grad_(), k, v)
+    # a gradient goes through FlashAttentionFn: the plain version's autograd
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention(*leaves).sum().backward()
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention(*ref_leaves, impl="ref").sum().backward()
+    for got, want in zip(leaves, ref_leaves):
+        torch.testing.assert_close(got.grad, want.grad, rtol=0, atol=0)
+    assert build.launch_counts()["flash_attention"] == 0
 
 
 def test_flash_attention_source_is_built_and_a_failed_build_raises(

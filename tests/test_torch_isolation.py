@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the reference package,
-and its entry points refuse to fall back to the CPU when no card exists."""
+"""The port stands alone: it imports neither JAX nor the reference package
+(nor ``msgpack`` or ``ml_dtypes``, which the card's machine lacks), and its
+entry points refuse to fall back to the CPU when no card exists."""
 import json
 import os
 import re
@@ -13,7 +14,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\.|"
-                       r"from\s+repro[.\s]|import\s+repro\s*$)", re.M)
+                       r"from\s+repro[.\s]|import\s+repro\s*$|"
+                       r"(import|from)\s+(msgpack|ml_dtypes)\b)", re.M)
+# top-level packages no port module may load (the card's machine has
+# neither msgpack nor ml_dtypes; checkpoints use the port's own codec)
+BANNED = ("jax", "repro", "msgpack", "ml_dtypes")
 
 
 def _port_modules():
@@ -32,8 +37,8 @@ def test_port_modules_import_without_jax_or_reference():
         "import importlib, json, sys\n"
         f"mods = {_port_modules()!r}\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        f"banned = {BANNED!r}\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in banned)\n"
         "print(json.dumps({'n': len(mods), 'bad': bad}))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
