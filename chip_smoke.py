@@ -73,7 +73,17 @@ shapes, and drives both main paths:
   rwkv6-7b, hymba-1.5b and whisper-small on the card against the CPU; a
   failure injected into a checkpointed run replayed to the uninterrupted
   run's state, and the card's checkpoint restored on the CPU; the folded
-  LUT router example (``examples/torch_lut_router_moe.py``).
+  LUT router example (``examples/torch_lut_router_moe.py``);
+* distribution and the dry run (slice 13): full-width gemma-2b trained 2
+  steps through ``launch.steps.build_cell``'s meshed train step on a
+  one-rank NCCL (1, 1) ``DeviceMesh`` (``DTensor`` parameters and moments
+  placed by ``dist.sharding``, K5 36 times a step, held against the plain
+  version; losses against phase 12's unmeshed steps); whisper-small
+  through ``launch.train --mesh 1,1``; ``dist.compress`` of a gemma-2b
+  gradient leaf on the card against the CPU, and ``compressed_psum`` on a
+  one-rank group; the dry run (``launch.dryrun``, torch's fake process
+  group, meta ``DTensor``s) of gemma-2b ``train_4k`` on 16 x 16 and
+  mixtral-8x22b ``decode_32k`` on 2 x 16 x 16 in a subprocess.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
@@ -81,8 +91,8 @@ is timed.  Any failed phase exits nonzero.  The last three lines of
 standard output are a JSON object with every kernel's launches, error and
 times, the card's ``name, power.limit``, then ``{"ok": true, "device":
 {...}}``; a ``{"fleet": ...}``, a ``{"search": ...}``, an
-``{"lm_families": ...}`` and an ``{"lm_train": ...}`` line come before
-them.  A full report goes
+``{"lm_families": ...}``, an ``{"lm_train": ...}`` and an
+``{"lm_dist": ...}`` line come before them.  A full report goes
 to ``build/chip_smoke/report.json``.
 Imports nothing of JAX.
 """
@@ -3900,6 +3910,296 @@ def train_phase(dev, smi: str, seed: int, art_dir: Path) -> dict:
     return out
 
 
+MESH_STEPS = 2               # meshed gemma-2b steps (phase 12's first two)
+# meshed vs unmeshed losses and grad norms: the (1, 1) step computes the
+# same sums; 1e-4 is far below a step's change of the loss (3.7e-3 from
+# step 1 to 2), so a dropped or mis-scaled update fails
+MESH_LOSS_RTOL = 1e-4
+DRYRUN_CELLS = (("gemma-2b", "train_4k", "single"),
+                ("mixtral-8x22b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT = 600
+COMPRESS_LEAF = "blocks.0.ffn.w_up"   # a [2,048, 16,384] gradient leaf
+COMPRESS_KEY = (("blocks", "ffn", "w_up"), 0)   # its lm.leaves entry
+
+
+def _one_rank_group(dev):
+    """A one-rank NCCL group on ``dev`` over an in-process store (the
+    loopback of a meshed run on one card)."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(torch.cuda.current_device() if dev.index is None
+                          else dev.index)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def mesh_train_gemma(dev, smi: str, seed: int, phase12: dict) -> tuple:
+    """Full-width gemma-2b trained ``MESH_STEPS`` steps through
+    ``build_cell``'s train step on a one-rank NCCL (1, 1) mesh (parameters
+    and AdamW moments ``DTensor``s placed by the sharding rules, batches
+    split over ``data``), from phase 12's seed, lr and batches: K5's wgmma
+    kernel 36 times a step, losses and grad norms within
+    ``MESH_LOSS_RTOL`` of phase 12's unmeshed steps, peak memory and step
+    ms beside phase 12's.  Keeps the ``COMPRESS_LEAF`` gradient of the
+    last step for the compression check.  Returns (report, K5 recorder, that gradient)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import lm_archs
+    from repro_torch.data import tokens
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_mod, steps
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+
+    cfg = lm_archs.GEMMA_2B
+    _one_rank_group(dev)
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), device=dev)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = steps.init_fn(cfg)(torch.Generator(dev).manual_seed(seed),
+                                    dev)
+        params = shd.distribute_params(params, mesh)
+        opt = steps.opt_init(params)
+        shape = steps.ShapeSpec("phase13", TRAIN_SEQ, TRAIN_BATCH, "train")
+        fn, _ = steps.build_cell(cfg, shape, mesh, opt_cfg=optim.AdamWConfig(
+            lr=TRAIN_LR, weight_decay=0.1))
+        corpus = tokens.SyntheticCorpus(tokens.TokenPipelineConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+            seed=seed))
+        # the COMPRESS_LEAF gradient, as AdamW receives it
+        idx = [i for i, (p, l, _) in enumerate(lm.leaves(params))
+               if (p, l) == COMPRESS_KEY][0]
+        kept = {}
+        orig_update = optim.adamw_update
+
+        def keeping_update(ocfg, ps, grads, state, **kw):
+            kept["grad"] = shd.local(grads[idx]).detach().clone()
+            return orig_update(ocfg, ps, grads, state, **kw)
+
+        losses_, norms, step_ms = [], [], []
+        build.reset_counters()
+        optim.adamw_update = keeping_update
+        try:
+            with K5Recorder() as rec:
+                for s in range(MESH_STEPS):
+                    toks = corpus.sample_batch(s, TRAIN_BATCH)
+                    batch = steps.shard_batch(steps.batch_on(
+                        {"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+                        dev), mesh)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    params, opt, m = fn(params, opt, batch)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t) * 1e3)
+                    losses_.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+        finally:
+            optim.adamw_update = orig_update
+        counts = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        k5 = counts.get("flash_attention_wgmma", 0)
+        want = phase12["losses"][:MESH_STEPS]
+        want_norms = phase12["grad_norms"][:MESH_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses_, want)]
+        rel_norms = [abs(a - b) / abs(b) for a, b in zip(norms, want_norms)]
+        placements = {str(p.placements) for p in params.parameters()}
+        out = {"arch": cfg.name, "mesh": [1, 1], "backend": "nccl",
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+               "losses": losses_, "unmeshed_losses": want,
+               "loss_rel_diff": rel, "grad_norms": norms,
+               "unmeshed_grad_norms": want_norms,
+               "grad_norm_rel_diff": rel_norms, "step_ms": step_ms,
+               "unmeshed_step_ms_median_2_5": phase12["step_ms_median_2_5"],
+               "peak_bytes": peak, "unmeshed_peak_bytes": phase12[
+                   "peak_bytes"], "k5_launches": k5,
+               "k5_launches_per_step": k5 / MESH_STEPS,
+               "param_placements": sorted(placements), "launches": counts}
+        print(f"gemma-2b meshed train ((1, 1) NCCL mesh, build_cell's step, "
+              f"DTensor parameters {sorted(placements)}): losses "
+              f"{[round(x, 5) for x in losses_]} vs unmeshed "
+              f"{[round(x, 5) for x in want]} (rel {rel}), grad norms "
+              f"{norms} vs {want_norms} (rel {rel_norms}), step ms "
+              f"{[round(x, 1) for x in step_ms]} vs unmeshed median "
+              f"{phase12['step_ms_median_2_5']:.1f}, peak "
+              f"{peak / 2**30:.2f} GiB vs {phase12['peak_bytes'] / 2**30:.2f}"
+              f" GiB, K5 wgmma {k5 / MESH_STEPS:g} a step [{smi}]",
+              flush=True)
+        if not all(math.isfinite(x) for x in losses_ + norms) or \
+                len(rel) != MESH_STEPS or len(rel_norms) != MESH_STEPS or \
+                max(rel + rel_norms) > MESH_LOSS_RTOL:
+            fail(f"gemma-2b meshed train: losses {losses_} vs unmeshed "
+                 f"{want}, grad norms {norms} vs {want_norms} (rtol "
+                 f"{MESH_LOSS_RTOL})")
+        if k5 != TRAIN_K5_PER_STEP * MESH_STEPS or \
+                counts.get("flash_attention", 0) or rec.launches() != k5:
+            fail(f"gemma-2b meshed train: K5 wgmma {k5} in {MESH_STEPS} "
+                 f"steps, not {TRAIN_K5_PER_STEP} a step; TF32 "
+                 f"{counts.get('flash_attention', 0)}")
+        del params, opt, fn, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, rec, kept["grad"]
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_train_whisper(dev, smi: str) -> tuple:
+    """whisper-small through ``launch.train --mesh 1,1`` (the DTensor path
+    on one rank; the CLI starts and ends its own group), 4 x 512, 2 steps:
+    K5 ``WHISPER_K5_PER_STEP`` times a step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+
+    argv = ["--arch", "whisper-small", *WHISPER_TRAIN, "--mesh", "1,1"]
+    build.reset_counters()
+    with K5Recorder() as rec:
+        state = train.main(argv)
+    torch.cuda.synchronize()
+    if dist.is_initialized():
+        fail("launch.train --mesh 1,1 left its process group initialised")
+    counts = build.launch_counts()
+    k5 = counts.get("flash_attention_wgmma", 0)
+    losses_ = [m["loss"] for m in state.metrics_history]
+    n = len(losses_)
+    out = {"cli": argv, "losses": losses_, "k5_launches": k5,
+           "k5_launches_per_step": k5 / max(n, 1),
+           "step_ms": [m["step_time_s"] * 1e3 for m in state.metrics_history]}
+    print(f"whisper-small meshed train (CLI {' '.join(argv)}): losses "
+          f"{[round(x, 4) for x in losses_]}, step ms "
+          f"{[round(x, 1) for x in out['step_ms']]}, K5 wgmma "
+          f"{k5 / max(n, 1):g} a step [{smi}]", flush=True)
+    if n != 2 or not all(math.isfinite(x) for x in losses_) or \
+            k5 != WHISPER_K5_PER_STEP * n or counts.get("flash_attention", 0):
+        fail(f"whisper-small --mesh 1,1: losses {losses_}, K5 wgmma {k5}")
+    del state
+    torch.cuda.empty_cache()
+    return out, rec
+
+
+def compress_on_card(grad, dev, smi: str) -> dict:
+    """``compress`` of a gemma-2b gradient leaf on the card equals the
+    CPU's bit for bit (q, scale, error), and ``compressed_psum`` on a
+    one-rank group equals ``decompress``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import compress
+
+    g = grad.float()
+    err = torch.zeros_like(g)
+    c, ne = compress.compress(g, err)
+    torch.cuda.synchronize()
+    t = per_call_ms(lambda: compress.compress(g, err), calls=10, reps=3)
+    cc, cne = compress.compress(g.cpu(), err.cpu())
+    same = (torch.equal(c.q.cpu(), cc.q) and torch.equal(c.scale.cpu(),
+                                                         cc.scale)
+            and torch.equal(ne.cpu(), cne))
+    _one_rank_group(dev)
+    try:
+        mean, perr = compress.compressed_psum({"g": g}, {"g": err})
+        torch.cuda.synchronize()
+        psum_same = torch.equal(mean["g"], compress.decompress(c)) and \
+            torch.equal(perr["g"], ne)
+    finally:
+        dist.destroy_process_group()
+    out = {"leaf": COMPRESS_LEAF, "shape": list(g.shape),
+           "scale": float(c.scale), "max_abs_err": float(ne.abs().max()),
+           "card_equals_cpu": same, "psum_equals_decompress": psum_same,
+           "compress_ms": t}
+    print(f"compress on the card ({COMPRESS_LEAF} gradient {list(g.shape)}):"
+          f" equals the CPU bit for bit {same}; compressed_psum on one rank "
+          f"equals decompress {psum_same}; {t:.3f} ms [{smi}]", flush=True)
+    if not (same and psum_same):
+        fail(f"compress on the card: card == CPU {same}, psum == decompress "
+             f"{psum_same}")
+    return out
+
+
+def dryrun_cells(smi: str, art_dir: Path) -> dict:
+    """The dry run of ``DRYRUN_CELLS`` at the production meshes (16 x 16,
+    2 x 16 x 16), in a subprocess with the fake group of 512 ranks: each
+    record's per-rank bytes beside the card's memory, its collectives and
+    flops."""
+    import os
+    import torch
+    out_dir = art_dir / "dryrun"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("REPRO_") and k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {"card_bytes": card}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--force",
+             "--results-dir", str(out_dir)], env=env, cwd=str(ROOT),
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT)
+        wall = time.perf_counter() - t
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        if proc.returncode or not path.exists():
+            fail(f"dry run {arch} {shape} {mesh}: exit {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            fail(f"dry run {arch} {shape} {mesh}: {rec.get('error')}")
+        ma, coll = rec["memory_analysis"], rec["collectives"]
+        row = {"mesh_shape": rec["mesh_shape"], "devices": rec["devices"],
+               "param_bytes_per_rank": ma["param_bytes_per_rank"],
+               "argument_bytes_per_rank": ma["argument_size_in_bytes"],
+               "peak_bytes_per_rank": ma["peak_bytes_per_rank"],
+               "peak_over_card": ma["peak_bytes_per_rank"] / card,
+               "flops_per_rank": rec["cost_analysis"]["flops"],
+               "collectives": {k: v for k, v in coll.items()
+                               if k == "total_bytes" or v["count"]},
+               "run_s": rec["run_s"], "wall_s": wall}
+        out[f"{arch} {shape} {mesh}"] = row
+        print(f"dry run {arch} {shape} on {rec['mesh_shape']} (fake group, "
+              f"meta DTensors): per rank parameters "
+              f"{row['param_bytes_per_rank'] / 2**30:.3f} GiB, arguments "
+              f"{row['argument_bytes_per_rank'] / 2**30:.3f} GiB, peak "
+              f"{row['peak_bytes_per_rank'] / 2**30:.3f} GiB = "
+              f"{row['peak_over_card']:.3f} of the card's "
+              f"{card / 2**30:.1f} GiB; flops {row['flops_per_rank']:.4g}; "
+              f"collectives {row['collectives']}; {wall:.1f} s [{smi}]",
+              flush=True)
+    return out
+
+
+def dist_phase(dev, smi: str, seed: int, art_dir: Path,
+               phase12: dict) -> dict:
+    """Slice 13's main path: distribution.  Full-width gemma-2b through
+    ``build_cell``'s meshed train step on a one-rank NCCL mesh (K5 held at
+    its layouts) and whisper-small through ``launch.train --mesh 1,1``;
+    ``compress`` on the card; the dry run of a production cell a mesh
+    kind.  Every process group is ended before the next part."""
+    t0 = time.perf_counter()
+    out, rows = {}, []
+    out["gemma-2b"], grec, grad = mesh_train_gemma(dev, smi, seed, phase12)
+    out["k5_held"] = {"gemma-2b meshed train": hold_k5_record(
+        grec, "gemma-2b meshed train")}
+    rows.append(k5_layout_row("gemma-2b meshed train layer",
+                              "gemma-2b meshed train", grec,
+                              _largest(grec, True), smi))
+    out["compress"] = compress_on_card(grad, dev, smi)
+    del grad
+    out["whisper-small"], wrec = mesh_train_whisper(dev, smi)
+    out["k5_held"]["whisper-small meshed train"] = hold_k5_record(
+        wrec, "whisper-small meshed train")
+    out["dryrun"] = dryrun_cells(smi, art_dir)
+    out["kernels"] = rows
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13 (distribution and the dry run): {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def main(seed: int) -> dict:
     """Run every phase; return the report (exits on the first failure)."""
     import numpy as np
@@ -4280,6 +4580,10 @@ def main(seed: int) -> dict:
     # -- phase 12: LM training (slice 12) --------------------------------------
     report["train"] = train_phase(dev, smi, seed, art_dir)
 
+    # -- phase 13: distribution and the dry run (slice 13) ---------------------
+    report["dist"] = dist_phase(dev, smi, seed, art_dir,
+                                report["train"]["gemma-2b"])
+
     for k in kernels:
         if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
@@ -4349,6 +4653,10 @@ def main(seed: int) -> dict:
     # LM training's K5 layouts: launches of the training runs (forward and
     # remat's recompute; the backward launches none)
     for k in report["train"]["kernels"]:
+        kernels.append(dict(k, route="cuda", source=SOURCES[k["name"]],
+                            replaces=REPLACES[k["name"]]))
+    # the meshed train step's K5 layout: launches of its run
+    for k in report["dist"]["kernels"]:
         kernels.append(dict(k, route="cuda", source=SOURCES[k["name"]],
                             replaces=REPLACES[k["name"]]))
     report["kernels"] = kernels
@@ -4435,6 +4743,19 @@ if __name__ == "__main__":
         "router": {key: tr["router"][key] for key in (
             "routing_agreement", "moe_rel_diff")},
         "seconds": tr["seconds"]}}))
+    di = rep["dist"]
+    print(json.dumps({"lm_dist": {
+        "gemma-2b_mesh_1_1": {key: di["gemma-2b"][key] for key in (
+            "losses", "unmeshed_losses", "loss_rel_diff", "grad_norms",
+            "unmeshed_grad_norms", "grad_norm_rel_diff", "step_ms",
+            "unmeshed_step_ms_median_2_5", "peak_bytes",
+            "unmeshed_peak_bytes", "k5_launches_per_step")},
+        "whisper-small_mesh_1_1": {key: di["whisper-small"][key] for key in (
+            "losses", "k5_launches_per_step", "step_ms")},
+        "compress": {key: di["compress"][key] for key in (
+            "card_equals_cpu", "psum_equals_decompress", "compress_ms")},
+        "dryrun": {k: v for k, v in di["dryrun"].items()},
+        "seconds": di["seconds"]}}))
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

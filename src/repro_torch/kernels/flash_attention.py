@@ -112,6 +112,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return mha_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
+# q rows a block of the meta-device forward
+META_BLOCK_Q = 512
+
+
+def _plain_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: Optional[int], q_offset: int
+                   ) -> torch.Tensor:
+    """The plain version a block of :data:`META_BLOCK_Q` q rows at a time:
+    the same operations, with scores of one block alive at once as K5
+    holds one tile (the dry run measures memory on meta tensors)."""
+    if q.shape[2] <= META_BLOCK_Q:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    return torch.cat([flash_attention_plain(
+        q[:, :, i:i + META_BLOCK_Q], k, v, causal=causal, window=window,
+        q_offset=q_offset + i) for i in range(0, q.shape[2], META_BLOCK_Q)],
+        dim=2)
+
+
 def _check(q, k, v, what: str, window: Optional[int]) -> None:
     """What both kernels require of their operands; raises otherwise."""
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
@@ -272,10 +291,15 @@ def _launch_wgmma(q, k, v, causal, window, q_offset, split_p) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """K5 on CUDA tensors, its plain version on CPU tensors; either with
+    """K5 on CUDA tensors, its plain version on CPU tensors (and on meta
+    tensors, which hold shapes only: the dry run); either with
     :class:`FlashAttentionFn`'s gradient when one is wanted."""
     if q.device.type == "cpu":
         return _apply(lambda *t: flash_attention_plain(
+            *t, causal=causal, window=window, q_offset=q_offset),
+            q, k, v, causal, window, q_offset)
+    if q.device.type == "meta":
+        return _apply(lambda *t: _plain_blocked(
             *t, causal=causal, window=window, q_offset=q_offset),
             q, k, v, causal, window, q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,

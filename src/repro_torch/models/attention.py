@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -114,6 +115,10 @@ def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
     q = q.reshape(b, s, hk, g, hd).permute(0, 2, 3, 1, 4)
     k = k.reshape(b, s, hk, hd).permute(0, 2, 1, 3)
     v = v.reshape(b, s, hk, hd).permute(0, 2, 1, 3)
+    # constrained before rope / qk-norm, as the reference places them
+    q = constrain(q, "batch", "heads", None, "act_seq", None)
+    k = constrain(k, "batch", "heads", None, None)
+    v = constrain(v, "batch", "heads", None, None)
     if spec.qk_norm:
         q = layers.rms_norm(q, p.q_norm.to(dt))
         k = layers.rms_norm(k, p.k_norm.to(dt))
@@ -162,7 +167,8 @@ def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_offset = 0
     o = ops.flash_attention(q.reshape(b, hk * g, sq, hd), k, v,
                             causal=causal, window=window, q_offset=q_offset)
-    return o.view(b, hk, g, sq, hd)
+    return constrain(o.view(b, hk, g, sq, hd),
+                     "batch", "heads", None, "act_seq", None)
 
 
 def _merge_heads(o: torch.Tensor) -> torch.Tensor:

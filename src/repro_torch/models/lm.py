@@ -30,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
+from repro_torch.dist import act_sharding
 from repro_torch.models import attention, ffn, layers, moe, rwkv, ssm
 from repro_torch.models.attention import AttnSpec, KVCache
 from repro_torch.models.config import ArchConfig
@@ -193,13 +194,19 @@ def _rebuild(cfg: ArchConfig, get: Callable[[str], torch.Tensor], device,
     """An :class:`LM` on ``device`` whose tensor at each parameter path
     (``"embed"``, ``"blocks.3.attn.wq"``, ...) is ``get(path)`` cast to
     ``dtype``; ``final_norm`` stays f32, as the reference never casts it."""
+    return fill(empty_params(cfg, device, dtype), get)
+
+
+def empty_params(cfg: ArchConfig, device, dtype: torch.dtype) -> LM:
+    """An uninitialised :class:`LM` of ``cfg`` on ``device`` in ``dtype``
+    (``final_norm`` in f32); on the meta device, shapes without storage."""
+    _check_family(cfg)
     vp, d = cfg.padded_vocab, cfg.d_model
     kw = dict(device=device, dtype=dtype)
-    model = LM(torch.empty((vp, d), **kw),
-               [_layer(cfg, device, dtype) for _ in range(cfg.n_layers)],
-               torch.empty(d, device=device),
-               None if cfg.tie_embeddings else torch.empty((d, vp), **kw))
-    return fill(model, get)
+    return LM(torch.empty((vp, d), **kw),
+              [_layer(cfg, device, dtype) for _ in range(cfg.n_layers)],
+              torch.empty(d, device=device),
+              None if cfg.tie_embeddings else torch.empty((d, vp), **kw))
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:
@@ -216,10 +223,19 @@ def compute_copy(model: LM, cfg: ArchConfig, device=None) -> LM:
     makes on every call (``_cast_blocks`` and the head's cast), made once.
     The model itself when nothing changes."""
     dt = compute_dtype(cfg)
-    dev = model.embed.device if device is None else torch.device(device)
-    if model.embed.dtype == dt and same_device(dev, model.embed.device):
+    embed = peek(model, "embed")
+    dev = embed.device if device is None else torch.device(device)
+    if embed.dtype == dt and same_device(dev, embed.device):
         return model
     return _rebuild(cfg, model.get_parameter, dev, dt)
+
+
+def peek(model, name: str) -> torch.Tensor:
+    """Parameter ``name`` of a model or of a :func:`local_view` of one, as
+    it is stored (for its type and device: no gather, no cast)."""
+    if isinstance(model, _CastView):
+        model = model._module
+    return getattr(model, name)
 
 
 def tree_getter(tree: dict) -> Callable[[str], torch.Tensor]:
@@ -423,29 +439,47 @@ def _rwkv_state(cfg: ArchConfig, batch: int, device) -> rwkv.RWKVState:
 # ---------------------------------------------------------------------------
 
 class _CastView:
-    """A module read through a cast: each floating tensor attribute reads
-    as ``.to(dtype)`` (a node of the autograd graph), each submodule as a
-    view of its own; anything else as it is."""
+    """A module read through a cast: each tensor attribute reads whole
+    (``act_sharding.gathered``: a sharded ``DTensor`` is all-gathered at
+    its use) and, when a dtype is set, floating ones as ``.to(dtype)`` (a
+    node of the autograd graph); each submodule as a view of its own, a
+    module list as a list of views; anything else as it is."""
 
     __slots__ = ("_module", "_dtype")
 
-    def __init__(self, module: nn.Module, dtype: torch.dtype):
+    def __init__(self, module: nn.Module, dtype: Optional[torch.dtype]):
         self._module, self._dtype = module, dtype
 
     def __getattr__(self, name: str):
         v = getattr(self._module, name)
+        if isinstance(v, nn.ModuleList):
+            return [_CastView(m, self._dtype) for m in v]
         if isinstance(v, nn.Module):
             return _CastView(v, self._dtype)
-        if isinstance(v, torch.Tensor) and v.is_floating_point():
-            return v.to(self._dtype)
+        if isinstance(v, torch.Tensor):
+            v = act_sharding.gathered(v)
+            if self._dtype is not None and v.is_floating_point():
+                return v.to(self._dtype)
         return v
 
 
 def cast_view(module: nn.Module, dtype: torch.dtype):
     """``module`` with every floating parameter read in ``dtype`` on each
     use, inside the autograd graph: the reference's ``_cast_blocks``
-    without a copy that would cut the gradient from the f32 masters."""
+    without a copy that would cut the gradient from the f32 masters.  A
+    view of a view casts the module underneath."""
+    if isinstance(module, _CastView):
+        module = module._module
     return _CastView(module, dtype)
+
+
+def local_view(model: nn.Module):
+    """``model`` (an :class:`LM` or a ``whisper.Whisper``) with every
+    parameter read whole at its use, in its own type: a model whose
+    parameters are sharded ``DTensor``s runs as one that holds them all,
+    one weight gathered at a time (a layer's gathered weights are freed
+    when the layer ends, and recomputed with it under remat)."""
+    return _CastView(model, None)
 
 
 def _remat(cfg: ArchConfig, layers_: List[Callable], x: torch.Tensor

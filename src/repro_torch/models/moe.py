@@ -35,6 +35,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.models import layers
 
 
@@ -108,6 +109,7 @@ def _group_dispatch(spec: MoESpec, cap: int, logits: torch.Tensor):
     b, s, e = logits.shape
     k = spec.top_k
     dev = logits.device
+    logits = constrain(logits, "batch", None, None)
     gate_vals, gate_idx = top_k(logits, k)                        # [B, S, k]
     gate_w = torch.softmax(gate_vals, dim=-1)
 
@@ -130,8 +132,10 @@ def _group_dispatch(spec: MoESpec, cap: int, logits: torch.Tensor):
     # write each kept slot once; column E * C collects the dropped ones
     order = gate_idx.argsort(dim=-1)
     slot = slot.reshape(b, s, k).gather(2, order)
-    return (dispatch[:, :e * cap].reshape(b, e, cap),
-            combine_w[:, :e * cap].reshape(b, e, cap), slot, aux)
+    return (constrain(dispatch[:, :e * cap].reshape(b, e, cap),
+                      "batch", None, None),
+            constrain(combine_w[:, :e * cap].reshape(b, e, cap),
+                      "batch", None, None), slot, aux)
 
 
 def apply_moe(p: MoE, spec: MoESpec, x: torch.Tensor,
@@ -153,15 +157,20 @@ def apply_moe(p: MoE, spec: MoESpec, x: torch.Tensor,
     dispatch, combine_w, slot, aux = _group_dispatch(spec, cap, logits)
 
     rows = torch.arange(b, device=x.device)[:, None]
-    xpad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)        # [B, S+1, D]
-    xe = xpad[rows, dispatch.reshape(b, e * cap)].reshape(b, e, cap, d)
+    # every per-token tensor stays on the batch's sharding, as the
+    # reference pins it
+    xpad = constrain(torch.cat([x, x.new_zeros((b, 1, d))], dim=1),
+                     "batch", None, None)                         # [B, S+1, D]
+    xe = constrain(xpad[rows, dispatch.reshape(b, e * cap)].reshape(
+        b, e, cap, d), "batch", None, None, None)
     act = layers.activation(spec.act)
     up = torch.einsum("becd,edf->becf", xe, p.w_up.to(dt))
     if spec.gated:
         h = act(torch.einsum("becd,edf->becf", xe, p.w_gate.to(dt))) * up
     else:
         h = act(up)
-    ye = torch.einsum("becf,efd->becd", h, p.w_down.to(dt))
+    ye = constrain(torch.einsum("becf,efd->becd", h, p.w_down.to(dt)),
+                   "batch", None, None, None)
     weighted = (ye * combine_w[..., None].to(dt)).reshape(b, e * cap, d)
     weighted = torch.cat([weighted, weighted.new_zeros((b, 1, d))], dim=1)
     # every token's k contributions, summed in f32 in a fixed order
@@ -170,4 +179,4 @@ def apply_moe(p: MoE, spec: MoESpec, x: torch.Tensor,
     out = parts[:, :, 0]
     for j in range(1, spec.top_k):
         out = out + parts[:, :, j]
-    return out.to(dt), aux.mean()
+    return constrain(out.to(dt), "batch", None, None), aux.mean()

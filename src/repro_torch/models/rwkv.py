@@ -29,6 +29,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.models import layers
 
 _CLAMP = 80.0
@@ -206,6 +207,8 @@ def time_mix(p: RWKVLayer, spec: RWKVSpec, x: torch.Tensor,
     v = (xv @ p.wv.to(dt)).reshape(b, s, h, hd)
     g = F.silu(xg @ p.wg.to(dt))
     logw = _decay(p, xw).reshape(b, s, h, hd)
+    r, k, v, logw = (constrain(t, "batch", None, "heads_tp", None)
+                     for t in (r, k, v, logw))
     o, s_fin = wkv_chunked(r.float(), k.float(), v.float(), logw,
                            p.u.float(), s0, spec.chunk)
     o = layers.layer_norm(o, p.gn_scale, p.gn_bias)   # per-head group norm
@@ -232,7 +235,8 @@ def rwkv_block(p: RWKVLayer, spec: RWKVSpec, x: torch.Tensor,
     x = x + att
     h2 = layers.layer_norm(x, p.ln2, p.ln2_b)
     cm, new_cm = channel_mix(p, spec, h2, state.shift_cm)
-    return x + cm, RWKVState(wkv=s_fin, shift_tm=new_tm, shift_cm=new_cm)
+    return constrain(x + cm, "batch", "act_seq", None), RWKVState(
+        wkv=s_fin, shift_tm=new_tm, shift_cm=new_cm)
 
 
 # ---------------------------------------------------------------------------

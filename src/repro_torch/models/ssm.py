@@ -30,6 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.models import layers
 
 
@@ -136,8 +137,10 @@ def selective_scan(a_log: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor,
         a_log = F.pad(a_log, (0, 0, 0, 0, 0, pad))
         bx = F.pad(bx, (0, 0, 0, 0, 0, pad))
     nc = a_log.shape[1] // c
-    a = a_log.reshape(b, nc, c, di, n)
-    h = bx.reshape(b, nc, c, di, n)
+    a = constrain(a_log.reshape(b, nc, c, di, n),
+                  "batch", None, None, "tp", None)
+    h = constrain(bx.reshape(b, nc, c, di, n),
+                  "batch", None, None, "tp", None)
     # in-chunk inclusive scan of every chunk at once, log2(C) steps
     off = 1
     while off < c:
@@ -152,7 +155,8 @@ def selective_scan(a_log: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor,
         hi = torch.exp(a[:, i]) * carry[:, None] + h[:, i]
         outs.append(hi)
         carry = hi[:, -1]
-    h_all = torch.stack(outs, dim=1).reshape(b, nc * c, di, n)
+    h_all = constrain(torch.stack(outs, dim=1).reshape(b, nc * c, di, n),
+                      "batch", None, "tp", None)
     return h_all[:, :s], carry
 
 

@@ -156,8 +156,9 @@ def compute_copy(model: Whisper, cfg: ArchConfig, device=None) -> Whisper:
     every weight cast once, as the reference casts each at its use; the
     model itself when nothing changes."""
     dt = lm.compute_dtype(cfg)
-    dev = model.embed.device if device is None else torch.device(device)
-    if model.embed.dtype == dt and lm.same_device(dev, model.embed.device):
+    embed = lm.peek(model, "embed")
+    dev = embed.device if device is None else torch.device(device)
+    if embed.dtype == dt and lm.same_device(dev, embed.device):
         return model
     return lm.fill(Whisper(cfg, dev, dt), model.get_parameter)
 
@@ -334,8 +335,9 @@ def decode_step(model: Whisper, cfg: ArchConfig,
     x = _decoder_embed(model, cfg, tokens, pos)
     spec = attn_spec(cfg, causal=True)
     w = cache["kv_k"].shape[3]
-    slot_pos = cache["slot_pos"].clone()
-    slot_pos[pos % w] = pos
+    slot_pos = torch.where(
+        torch.arange(w, device=pos.device) == pos % w, pos,
+        cache["slot_pos"])
     x, kvs = _decoder(model, cfg, x, cache["cross_k"], cache["cross_v"],
                       lambda blk, l, h: attention.attention_decode(
                           blk.self_attn, spec, h, pos, None,

@@ -8,7 +8,9 @@ straggler flags, retries.
   card before the clock stops) feeds the straggler detector;
 * a failed step (device loss, preemption) restores the newest checkpoint
   and replays, up to ``max_retries`` times;
-* asynchronous checkpoints copy to host memory and write on a thread.
+* asynchronous checkpoints copy to host memory and write on a thread;
+  on a mesh every rank gathers the state and rank 0 alone writes it
+  (``LoopConfig.ckpt_write``).
 
 The port's step functions update the parameters in place (the reference's
 return new ones), so a failure inside the optimizer's update leaves the
@@ -51,6 +53,7 @@ class LoopConfig:
     log_every: int = 20
     max_retries: int = 2
     keep_ckpts: int = 3
+    ckpt_write: bool = True     # False on every rank of a mesh but rank 0
 
 
 @dataclasses.dataclass
@@ -134,8 +137,10 @@ def run(cfg: LoopConfig, state: LoopState, step_fn: Callable,
             log_fn(step, m)
         if cfg.ckpt_dir and (state.step % cfg.ckpt_every == 0
                              or state.step == cfg.total_steps):
+            tree = _tree(state)     # a collective for sharded state
             save = checkpoint.save_async if cfg.ckpt_async \
                 else checkpoint.save
-            save(cfg.ckpt_dir, state.step, _tree(state), keep=cfg.keep_ckpts)
+            if cfg.ckpt_write:
+                save(cfg.ckpt_dir, state.step, tree, keep=cfg.keep_ckpts)
     checkpoint.wait_pending()
     return state

@@ -7,6 +7,10 @@ statistics included (their gradient is zero, so they only decay by
 leaves integer leaves (learned mappings) alone.  The caller hands over the
 leaves in the reference's order (``assemble.leaves``) with their gradients
 (None for a leaf without one, which counts as zero).  Updates are in place.
+
+Leaves may be ``DTensor``s (the meshed train step's): the global norm then
+sums every shard of every leaf once, as the reference's global leaves do,
+and the update runs on each rank's own shards.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.dist import act_sharding
 
 
 def _is_float(t: torch.Tensor) -> bool:
@@ -63,7 +69,7 @@ def global_norm(tensors: Sequence[Optional[torch.Tensor]], *,
             population, -1)), dim=1)
             for t in tensors if t is not None and _is_float(t)]
         return torch.sqrt(torch.sum(torch.stack(sq), dim=0))
-    sq = [torch.sum(torch.square(t.to(torch.float32)))
+    sq = [act_sharding.full(torch.sum(torch.square(t.to(torch.float32))))
           for t in tensors if t is not None and _is_float(t)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
@@ -99,6 +105,7 @@ def adamw_update(cfg: AdamWConfig, params: Sequence[torch.Tensor],
     for p, g, m, v in zip(params, grads, state.m, state.v):
         if g is None:
             continue
+        p, g, m, v = (act_sharding.local(t) for t in (p, g, m, v))
         g = g.to(torch.float32)
         g = (g.reshape(population, -1) * scale[:, None]).view_as(g) \
             if population else g * scale

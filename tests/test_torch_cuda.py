@@ -1168,3 +1168,62 @@ def test_train_step_on_card_matches_cpu(arch, cuda):
     for got, want in zip(grads, cgrads):
         scale = max(float(want.abs().max()), 1e-3 * top)
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.fixture
+def one_rank_nccl(cuda):
+    """A one-rank NCCL group over an in-process store, ended after the
+    test."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield dev
+    dist.destroy_process_group()
+
+
+def test_k5_on_local_heads_of_a_one_rank_mesh(one_rank_nccl):
+    """K5 run the meshed way on a one-rank (1, 1) NCCL mesh equals K5
+    unmeshed: ``local_map`` of K5 over ``DTensor`` operands (each rank's
+    local heads: all of them on one rank) bit for bit, one launch."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch import mesh as mesh_mod
+    dev = one_rank_nccl
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), device=dev)
+    g = torch.Generator(dev).manual_seed(7)
+    q, k, v = (torch.randn((2, h, 256, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for h in (8, 2, 2))
+    kw = dict(causal=True, window=None, q_offset=0)
+    want = flash_attention.flash_attention(q, k, v, **kw)
+    mapped = local_map(
+        lambda a, b, c: flash_attention.flash_attention(a, b, c, **kw),
+        out_placements=[Replicate(), Replicate()],
+        in_placements=([Replicate(), Replicate()],) * 3)
+    dq, dk, dv = (distribute_tensor(t, mesh, [Replicate(), Replicate()])
+                  for t in (q, k, v))
+    build.reset_counters()
+    out = mapped(dq, dk, dv)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[flash_attention.WGMMA] == 1
+    assert torch.equal(out.to_local(), want)
+
+
+def test_compress_on_card_equals_cpu(cuda):
+    """``dist.compress`` on CUDA equals the CPU bit for bit (q, scale and
+    the new error) over 5 error-feedback steps, at 64 scales: a scale
+    taken as ``max * (1 / 127)`` instead of ``max / 127`` differs in the
+    last bit at some of them."""
+    from repro_torch.dist import compress
+    gen = torch.Generator().manual_seed(1)
+    for i in range(64):
+        g = torch.randn((256, 64), generator=gen) * float(
+            torch.rand((), generator=gen) * 10 ** (i % 8 - 3))
+        err_c, err_g = torch.zeros_like(g), torch.zeros_like(g).to(cuda)
+        for _ in range(5):
+            cc, err_c = compress.compress(g, err_c)
+            cg, err_g = compress.compress(g.to(cuda), err_g)
+            assert torch.equal(cg.scale.cpu(), cc.scale), i
+            assert torch.equal(cg.q.cpu(), cc.q), i
+            assert torch.equal(err_g.cpu(), err_c), i

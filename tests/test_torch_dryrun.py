@@ -1,0 +1,149 @@
+"""The dry run (``repro_torch.launch.dryrun``) in one subprocess with
+torch's fake process group, at ``REPRO_MESH_SHAPE=2,4`` /
+``REPRO_MESH_SHAPE_MULTI=2,2,2`` and 8 fake ranks, on smoke configs at the
+production shapes (meta tensors: nothing is allocated).  The subprocess
+imports no JAX; this test holds its records against the reference:
+
+* ``status`` is the reference's ``cell_runnable`` verdict;
+* rank 0's parameter bytes equal a sum reckoned from the reference's spec
+  tree and ``abstract_params`` shapes (a sharded dim holds
+  ``ceil(n / size)`` entries on rank 0);
+* a train cell with ``model > 1`` has collectives; a (1, 1) mesh none.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+from jax.sharding import PartitionSpec as P
+
+from repro.configs import lm_archs as jarchs
+from repro.launch import steps as jsteps
+
+ROOT = Path(__file__).resolve().parents[1]
+# gemma-2b at every shape (its long_500k is skipped); rwkv6-7b, which is
+# sub-quadratic, at long_500k (a batch of 1: the replicated fallback)
+CELLS = [("gemma-2b", s) for s in jsteps.SHAPES] + [("rwkv6-7b", "long_500k")]
+MESH_SIZES = {"single": {"data": 2, "model": 4},
+              "multi": {"pod": 2, "data": 2, "model": 2}}
+
+SCRIPT = """
+import json, os
+from repro_torch.launch import dryrun
+out = []
+for arch, shape in {cells!r}:
+    for mesh in ("single", "multi"):
+        out.append(dryrun.run_cell(arch, shape, mesh, verbose=False,
+                                   smoke=True))
+os.environ["REPRO_MESH_SHAPE"] = "1,1"
+for shape in ("train_4k", "decode_32k"):
+    rec = dryrun.run_cell("gemma-2b", shape, "single", verbose=False,
+                          smoke=True)
+    rec["mesh"] = "one"
+    out.append(rec)
+print("RECORDS " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def records():
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("REPRO_") and k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=str(ROOT / "src"), REPRO_MESH_SHAPE="2,4",
+               REPRO_MESH_SHAPE_MULTI="2,2,2", REPRO_DRYRUN_DEVICES="8",
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", SCRIPT.format(cells=CELLS)],
+                         env=env, cwd=str(ROOT), capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [l for l in out.stdout.splitlines() if l.startswith("RECORDS ")]
+    return json.loads(line[-1][len("RECORDS "):])
+
+
+def _ref_param_bytes(arch, shape_name, sizes):
+    """Rank 0's parameter bytes from the reference's specs and shapes."""
+    cfg = jarchs.smoke(arch)
+    serve = jsteps.SHAPES[shape_name].kind != "train"
+    specs = jax.tree.leaves(jsteps.param_spec_tree(cfg),
+                            is_leaf=lambda x: isinstance(x, P))
+    shapes = jax.tree.leaves(jsteps.abstract_params(cfg, serve=serve))
+    total = 0
+    for spec, leaf in zip(specs, shapes):
+        n = 1
+        for dim, size in enumerate(leaf.shape):
+            entry = spec[dim] if dim < len(spec) else None
+            axes = () if entry is None else \
+                (entry,) if isinstance(entry, str) else entry
+            split = math.prod(sizes[a] for a in axes)
+            n *= -(-size // split)
+        total += n * leaf.dtype.itemsize
+    return total
+
+
+def test_every_cell_has_the_reference_status(records):
+    assert len(records) == len(CELLS) * 2 + 2
+    for rec in records:
+        ok, reason = jsteps.cell_runnable(jarchs.smoke(rec["arch"]),
+                                          jsteps.SHAPES[rec["shape"]])
+        assert rec["status"] == ("ok" if ok else "skipped"), rec
+        if not ok:
+            assert rec["reason"] == reason
+
+
+def test_param_bytes_per_rank_equal_reference_specs(records):
+    n = 0
+    for rec in records:
+        if rec["status"] != "ok" or rec["mesh"] == "one":
+            continue
+        want = _ref_param_bytes(rec["arch"], rec["shape"],
+                                MESH_SIZES[rec["mesh"]])
+        ma = rec["memory_analysis"]
+        assert ma["param_bytes_per_rank"] == want, rec
+        assert ma["argument_size_in_bytes"] >= want
+        assert ma["peak_bytes_per_rank"] >= ma["argument_size_in_bytes"]
+        assert rec["cost_analysis"]["flops"] > 0
+        n += 1
+    assert n == 8
+
+
+def test_collectives_where_the_mesh_splits(records):
+    for rec in records:
+        if rec["status"] != "ok":
+            continue
+        coll = rec["collectives"]
+        count = sum(v["count"] for k, v in coll.items() if k != "total_bytes")
+        if rec["mesh"] == "one":
+            assert rec["mesh_shape"] == [1, 1]
+            assert count == 0 and coll["total_bytes"] == 0, rec
+        elif rec["shape"] == "train_4k":
+            assert count >= 1 and coll["all-reduce"]["count"] >= 1, rec
+            assert coll["total_bytes"] > 0
+
+
+@pytest.mark.parametrize("causal,window,q_offset,skv", [
+    (True, None, 0, 1100), (True, 300, 0, 1100), (False, None, 0, 700),
+    (True, None, 400, 1500)])
+def test_meta_attention_blocks_equal_the_plain_version(causal, window,
+                                                       q_offset, skv):
+    """The dry run's meta attention (``_plain_blocked``: the plain version
+    a block of ``META_BLOCK_Q`` q rows at a time, so one block's scores are
+    alive at once as in K5) gives the plain version's values on CPU
+    tensors, and the meta dispatch its shape and type."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(skv + q_offset)
+    sq = skv - q_offset if causal else 1100
+    q = torch.randn(1, 4, sq, 16, generator=g)
+    k, v = (torch.randn(1, 2, skv, 16, generator=g) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert sq > fa.META_BLOCK_Q
+    torch.testing.assert_close(fa._plain_blocked(q, k, v, **kw),
+                               fa.flash_attention_plain(q, k, v, **kw),
+                               rtol=0, atol=1e-6)
+    out = fa.flash_attention(*(t.to("meta") for t in (q, k, v)), **kw)
+    assert out.device.type == "meta" and out.shape == q.shape \
+        and out.dtype == q.dtype

@@ -104,3 +104,35 @@ def test_entry_points_refuse_to_run_on_cpu_by_default(tmp_path):
     router = StreamRouter(stream_cell.CompiledStreamCell.load(
         cpath, device="cpu"), block=4)
     assert router.engine.net.device.type == "cpu"
+
+
+def test_port_imports_leave_process_state_alone():
+    """Importing every port module (the distribution layer and the dry run
+    included) starts no process group and leaves ``os.environ`` as it was
+    (the reference's dry run sets ``XLA_FLAGS`` when imported; the port's
+    must not), and the import bans above cover the new modules."""
+    mods = _port_modules()
+    for m in ("repro_torch.dist.sharding", "repro_torch.dist.act_sharding",
+              "repro_torch.dist.pipeline", "repro_torch.dist.compress",
+              "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+              "repro_torch.launch.steps", "repro_torch.launch.train"):
+        assert m in mods
+    code = (
+        "import importlib, json, os, sys\n"
+        "before = dict(os.environ)\n"
+        f"mods = {mods!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import torch.distributed as dist\n"
+        f"banned = {BANNED!r}\n"
+        "print(json.dumps({'pg': dist.is_available() and "
+        "dist.is_initialized(), 'env': dict(os.environ) == before, "
+        "'bad': sorted(k for k in sys.modules "
+        "if k.split('.')[0] in banned)}))\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("REPRO_") and k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"pg": False, "env": True, "bad": []}

@@ -134,8 +134,10 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     assert "3 steps on cpu" in capsys.readouterr().out
     again = train.main(argv)
     assert again.step == 3 and again.metrics_history == []
-    with pytest.raises(SystemExit, match="A.14d"):
+    # a (2, 1) mesh needs two ranks; this process is one
+    with pytest.raises(SystemExit, match="WORLD_SIZE"):
         train.main(argv + ["--mesh", "2,1"])
+    assert not torch.distributed.is_initialized()
     wstate = train.main(["--arch", "whisper-small", "--smoke", "--device",
                          "cpu", "--steps", "2", "--batch", "2", "--seq",
                          "8"])
