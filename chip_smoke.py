@@ -83,7 +83,13 @@ shapes, and drives both main paths:
   gradient leaf on the card against the CPU, and ``compressed_psum`` on a
   one-rank group; the dry run (``launch.dryrun``, torch's fake process
   group, meta ``DTensor``s) of gemma-2b ``train_4k`` on 16 x 16 and
-  mixtral-8x22b ``decode_32k`` on 2 x 16 x 16 in a subprocess.
+  mixtral-8x22b ``decode_32k`` on 2 x 16 x 16 in a subprocess;
+* the autotuner's measurement path (slice 14): ``autotune_plan`` on the
+  fused plans of phase 4's ``nid`` (K1) and ``mnist`` (K2) artifacts at
+  2,048 rows, each distinct launch of the grid (K1, or K2 on one cluster
+  plan) timed once and counted;
+  the measured plans saved, reloaded with ``source == "measured"`` and
+  served against ``take`` on a held-out batch.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
@@ -91,9 +97,9 @@ is timed.  Any failed phase exits nonzero.  The last three lines of
 standard output are a JSON object with every kernel's launches, error and
 times, the card's ``name, power.limit``, then ``{"ok": true, "device":
 {...}}``; a ``{"fleet": ...}``, a ``{"search": ...}``, an
-``{"lm_families": ...}``, an ``{"lm_train": ...}`` and an
-``{"lm_dist": ...}`` line come before them.  A full report goes
-to ``build/chip_smoke/report.json``.
+``{"lm_families": ...}``, an ``{"lm_train": ...}``, an
+``{"lm_dist": ...}`` and an ``{"autotune": ...}`` line come before
+them.  A full report goes to ``build/chip_smoke/report.json``.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -4200,6 +4206,159 @@ def dist_phase(dev, smi: str, seed: int, art_dir: Path,
     return out
 
 
+AUTOTUNE_ROWS = 2048          # codes each autotuned launch runs
+AUTOTUNE_REPS = 3             # timed reps a launch (after one warm-up)
+AUTOTUNE_HELD_OUT = 4096      # rows the measured plans serve afterwards
+
+
+def _launch_label(key) -> str:
+    """``resident`` (K1) or ``streamed/c<cluster>/r<rows>/ring<units>``
+    (K2's cluster plan) for a card launch of ``autotune.hopper_launch``."""
+    if key[0] == "resident":
+        return "resident"
+    return "streamed/c{}/r{}/ring{}".format(*key[1:])
+
+
+def autotune_task(task: str, kname: str, dev, smi: str, seed: int,
+                  art_dir: Path) -> tuple:
+    """``autotune_plan`` on the fused plan of ``task``'s phase-4 artifact:
+    its launches counted (each distinct launch timed once), the measured
+    plan saved, reloaded and served against ``take`` on a held-out batch,
+    and ``kname`` at ``AUTOTUNE_ROWS`` rows timed beside its plain version.
+    Returns (the task's report, its kernel-line row)."""
+    import numpy as np
+    import torch
+    from repro_torch import backends, pipeline
+    from repro_torch.kernels import autotune, build, lut_cascade
+
+    fused = backends.get("fused")
+    net = pipeline.CompiledLUTNetwork.load(
+        str(art_dir / f"{task}_fused.npz"), device=dev)
+    plan = net.compile_backend("fused").plan
+    layers = tuple(tuple(int(v) for v in l) for l in plan.meta["layers"])
+    isz = plan.buffers["tables"].dtype.itemsize
+    grid = autotune.measurement_grid(
+        layers, table_itemsize=isz, table_dtype=plan.meta["table_dtype"],
+        device=dev)
+    keys = [autotune.hopper_launch(t, layers, isz) for t in grid]
+    distinct = list(dict.fromkeys(keys))
+    runs = AUTOTUNE_REPS + 1
+    expect = {"lut_cascade_resident": runs * distinct.count(("resident",)),
+              "lut_cascade_streamed": runs * sum(k[0] == "streamed"
+                                                 for k in distinct),
+              "lut_lookup": 0}
+    build.reset_counters()
+    t0 = time.perf_counter()
+    tuned = fused.autotune_plan(plan, rows=AUTOTUNE_ROWS, reps=AUTOTUNE_REPS,
+                                seed=seed, device=dev)
+    tune_s = time.perf_counter() - t0
+    launches = lut_launches()
+    if launches != expect or not launches[kname]:
+        fail(f"autotune {task}: launches {launches}, expected {expect} "
+             f"({len(distinct)} distinct launches of {len(grid)} candidates)")
+    report = tuned.meta["tuning_report"]
+    won = autotune.KernelTuning.from_meta(tuned.meta["tuning"])
+    best = {}
+    for row, key in zip(report, keys):
+        if best.setdefault(_launch_label(key), row["best_s"]) != row["best_s"]:
+            fail(f"autotune {task}: candidates of launch {key} report "
+                 "different times")
+    won_label = _launch_label(autotune.hopper_launch(won, layers, isz))
+    if (won.source != "measured" or len(report) != len(grid)
+            or best[won_label] != min(best.values())):
+        fail(f"autotune {task}: winner {won} is not the fastest launch of "
+             f"{best} ({len(report)} report rows, {len(grid)} candidates)")
+    print(f"autotune {task}: best_s per launch {best}, winner {won_label} "
+          f"({won.to_meta()}), {len(grid)} candidates, tuned in "
+          f"{tune_s:.2f} s [{smi}]", flush=True)
+
+    # the measured plan through save and load, served against take
+    net._plans["fused"] = tuned
+    path = net.save(str(art_dir / f"{task}_autotuned.npz"))
+    loaded = pipeline.CompiledLUTNetwork.load(path, device=dev)
+    lmeta = loaded._plans["fused"].meta
+    if (lmeta["tuning"] != tuned.meta["tuning"]
+            or lmeta["tuning_report"] != report
+            or lmeta["tuning"]["source"] != "measured"):
+        fail(f"autotune {task}: the measured tuning did not survive "
+             f"save/load: {lmeta.get('tuning')}")
+    rs = np.random.RandomState(seed + 14)
+    xs = rs.uniform(-1.0, 1.0, (AUTOTUNE_HELD_OUT, loaded.cfg.in_features)
+                    ).astype(np.float32)
+    build.reset_counters()
+    got = loaded.predict_codes(xs, backend="fused")
+    torch.cuda.synchronize()
+    served = lut_launches()
+    want = loaded.predict_codes(xs, backend="take")
+    mismatched = int((got != want).any(dim=1).sum())
+    won_kernel = ("lut_cascade_resident" if won_label == "resident"
+                  else "lut_cascade_streamed")
+    if mismatched or not served[won_kernel]:
+        fail(f"autotune {task}: the measured plan disagrees with take on "
+             f"{mismatched} of {AUTOTUNE_HELD_OUT} rows (launches {served})")
+
+    # kname at the tuner's codes, against its plain version
+    tables = plan.tensor("tables", dev)
+    maps = [plan.tensor(f"map_{l}", dev) if f"map_{l}" in plan.buffers
+            else None for l in range(len(layers))]
+    ops = lut_cascade.prepare(tables, layers, maps)
+    codes = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, int(plan.meta["input_span"]),
+        size=(AUTOTUNE_ROWS, layers[0][0])).astype(np.int32)).to(dev)
+    if kname == "lut_cascade_resident":
+        kern = lambda: lut_cascade.lut_cascade_resident(  # noqa: E731
+            codes, ops)
+        sub = "cascade_resident_kernel"
+    else:
+        ut = won.unit_tile
+        kern = lambda: lut_cascade.lut_cascade_streamed(  # noqa: E731
+            codes, ops, unit_tile=ut)
+        sub = "cascade_streamed_kernel"
+    plain = lambda: lut_cascade.lut_cascade_plain(  # noqa: E731
+        codes, tables, maps, layers)
+    k_out = kern()
+    torch.cuda.synchronize()
+    err = int((k_out - plain()).abs().max())
+    if err:
+        fail(f"autotune {task}: {kname} disagrees with its plain version "
+             f"by {err}")
+    byts, n_ops = cascade_work(layers, AUTOTUNE_ROWS,
+                               tables.numel() * tables.element_size(),
+                               ops.map_words * 4)
+    bound_ms, bound_by = bound(byts, n_ops)
+    ms, plain_ms = per_call_ms(kern), per_call_ms(plain)
+    device_ms = traced_ms(kern, sub)
+    row = {"name": kname, "path": f"{task} autotune", "task": task,
+           "batch": AUTOTUNE_ROWS, "launches": launches[kname],
+           "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None, "route": "cuda", "source": SOURCES[kname],
+           "replaces": REPLACES[kname]}
+    print(f"time {kname} ({task} autotune, batch {AUTOTUNE_ROWS}): kernel "
+          f"{ms:.4f} ms (device {device_ms} ms), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by}) [{smi}]", flush=True)
+    return {"candidates": len(grid), "distinct_launches": len(distinct),
+            "launches": launches, "best_s": best, "winner": won.to_meta(),
+            "tune_s": tune_s, "held_out_rows": AUTOTUNE_HELD_OUT,
+            "served_launches": served, "artifact": path}, row
+
+
+def autotune_phase(dev, smi: str, seed: int, art_dir: Path) -> dict:
+    """Slice 14's main path: ``FusedCascadeBackend.autotune_plan`` on the
+    ``nid`` (K1) and ``mnist`` (K2) fused plans of phase 4's artifacts at
+    ``AUTOTUNE_ROWS`` rows, with the launches of each run counted."""
+    t0 = time.perf_counter()
+    out, rows = {}, []
+    for task, kname in (("nid", "lut_cascade_resident"),
+                        ("mnist", "lut_cascade_streamed")):
+        out[task], row = autotune_task(task, kname, dev, smi, seed, art_dir)
+        rows.append(row)
+    out["kernels"] = rows
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14 (autotune): {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main(seed: int) -> dict:
     """Run every phase; return the report (exits on the first failure)."""
     import numpy as np
@@ -4584,6 +4743,9 @@ def main(seed: int) -> dict:
     report["dist"] = dist_phase(dev, smi, seed, art_dir,
                                 report["train"]["gemma-2b"])
 
+    # -- phase 14: the autotuner's measurement path (slice 14) ----------------
+    report["autotune"] = autotune_phase(dev, smi, seed, art_dir)
+
     for k in kernels:
         if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
@@ -4659,6 +4821,8 @@ def main(seed: int) -> dict:
     for k in report["dist"]["kernels"]:
         kernels.append(dict(k, route="cuda", source=SOURCES[k["name"]],
                             replaces=REPLACES[k["name"]]))
+    # the autotuner's K1 and K2 at its codes: launches of its runs
+    kernels.extend(report["autotune"]["kernels"])
     report["kernels"] = kernels
     report["profiler_lead_lost"] = {str(n): LEAD_LOST.count(n)
                                     for n in sorted(set(LEAD_LOST))}
@@ -4756,6 +4920,12 @@ if __name__ == "__main__":
             "card_equals_cpu", "psum_equals_decompress", "compress_ms")},
         "dryrun": {k: v for k, v in di["dryrun"].items()},
         "seconds": di["seconds"]}}))
+    au = rep["autotune"]
+    print(json.dumps({"autotune": {
+        **{t: {key: au[t][key] for key in (
+            "candidates", "distinct_launches", "launches", "best_s",
+            "winner", "tune_s")} for t in ("nid", "mnist")},
+        "seconds": au["seconds"]}}))
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

@@ -12,15 +12,19 @@ byte-identical and ``meta`` equal (on the CPU) to ``repro.backends.fused``
 * ``map_<l> [units, fan_in] int32`` -- the mappings of non-assemble layers.
 
 ``run`` goes through ``kernels.ops.lut_cascade``: K1 or K2 on the card, the
-plain cascade on the CPU.
+plain cascade on the CPU.  ``autotune_plan`` times the card's launches for
+a plan's candidate tunings and stamps the fastest into a copy of it.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 from repro_torch.backends.base import (BackendCapabilities, ExecutionPlan,
                                        LookupBackend, require_mappings)
 from repro_torch.backends.registry import register
@@ -153,6 +157,72 @@ class FusedCascadeBackend(LookupBackend):
                     tuning=tuning.to_meta(),
                     plan_format=self.plan_format)
         return ExecutionPlan(backend=self.name, meta=meta, buffers=buffers)
+
+    def autotune_plan(self, plan: ExecutionPlan, *, rows: int = 2048,
+                      reps: int = 3, seed: int = 0, candidates=None,
+                      device=None) -> ExecutionPlan:
+        """Measurement-driven tuning: time the candidate tunings (default
+        :func:`autotune.measurement_grid` for ``device``) on ``rows`` random
+        codes from ``RandomState(seed)`` and return a copy of ``plan`` with
+        the winner (``source="measured"``) and a ``tuning_report`` row a
+        candidate, which persist through ``save``.
+
+        On the card (``device``, CUDA by default) a candidate is the launch
+        it makes (:func:`autotune.hopper_launch`: K1, or K2 on one cluster
+        plan); each distinct launch is timed once through
+        :func:`autotune.measure_tuning`, every candidate's row carries its
+        launch's ``best_s``, and the winner is the first candidate of the
+        fastest launch, with that launch's mode.  ``impl="xla"`` (the plain
+        version) is refused there.  On the CPU every candidate runs the same
+        plain cascade, so nothing is timed: the winner is the first
+        candidate, the roofline's pick, and every row's ``best_s`` is 0.0.
+        """
+        dev = _device.resolve(device)
+        layers = [tuple(map(int, lm)) for lm in plan.meta["layers"]]
+        itemsize = np.dtype(plan.meta["table_dtype"]).itemsize
+        if candidates is None:
+            candidates = autotune.measurement_grid(
+                layers, table_itemsize=itemsize,
+                table_dtype=plan.meta["table_dtype"], device=dev)
+        candidates = list(candidates)
+        if dev.type != "cuda":
+            winner = dataclasses.replace(candidates[0], source="measured")
+            report = [{"tuning": t.to_meta(), "best_s": 0.0}
+                      for t in candidates]
+        else:
+            if any(t.impl == "xla" for t in candidates):
+                raise ValueError("autotune_plan: impl='xla' is the plain "
+                                 "version, not a kernel to measure")
+            keys = [autotune.hopper_launch(t, layers, itemsize)
+                    for t in candidates]
+            first = {}
+            for t, k in zip(candidates, keys):
+                first.setdefault(k, t)
+            span = int(plan.meta.get("input_span", 2))
+            codes = torch.from_numpy(np.random.RandomState(seed).randint(
+                0, span, size=(rows, layers[0][0])).astype(np.int32)).to(dev)
+
+            def factory(tuning: autotune.KernelTuning):
+                trial = copy.copy(plan)
+                trial.meta = dict(plan.meta, tuning=tuning.to_meta())
+
+                def run():
+                    self.run(trial, codes)
+                    torch.cuda.synchronize(dev)
+                return run
+
+            winner, timed = autotune.measure_tuning(
+                factory, list(first.values()), reps=reps)
+            best = {k: row["best_s"] for k, row in zip(first, timed)}
+            report = [{"tuning": t.to_meta(), "best_s": best[k]}
+                      for t, k in zip(candidates, keys)]
+            winner = dataclasses.replace(
+                winner, mode=autotune.hopper_launch(winner, layers,
+                                                    itemsize)[0])
+        out = copy.copy(plan)
+        out.meta = dict(plan.meta, tuning=winner.to_meta(),
+                        tuning_report=report)
+        return out
 
     def run(self, plan: ExecutionPlan, codes: torch.Tensor) -> torch.Tensor:
         """Execute the cascade with the plan's persisted tuning."""

@@ -71,11 +71,8 @@ def lut_cascade(codes: torch.Tensor, amat, tables: torch.Tensor, *,
     if operands is None:
         operands = _lc.prepare(tables, layers, mappings)
     codes = codes.to(torch.int32).contiguous()
-    mode = t.mode
-    if mode == "resident" and autotune.hopper_mode(
-            layers, tables.element_size()) != "resident":
-        mode = "streamed"
-    if mode == "resident":
+    if autotune.hopper_launch(t, layers,
+                              tables.element_size())[0] == "resident":
         return _lc.lut_cascade_resident(codes, operands)
     return _lc.lut_cascade_streamed(codes, operands, unit_tile=t.unit_tile)
 

@@ -1227,3 +1227,57 @@ def test_compress_on_card_equals_cpu(cuda):
             assert torch.equal(cg.scale.cpu(), cc.scale), i
             assert torch.equal(cg.q.cpu(), cc.q), i
             assert torch.equal(err_g.cpu(), err_c), i
+
+
+def test_autotune_plan_measures_each_card_launch_once(cuda):
+    """``autotune_plan`` of ``nid`` (tables resident in shared memory)
+    times one K1 launch and one K2 launch a distinct cluster plan (one:
+    ``unit_tile`` changes only the ring route's plan), from its own grid
+    and from all 20 roofline candidates alike; every report row carries
+    its launch's time, and the measured plan answers as ``take``."""
+    from repro_torch import backends
+    from repro_torch.kernels import autotune
+    cfg = paper_tasks.task_config("nid")
+    net = pipeline.CompiledLUTNetwork(cfg, *_arrays(cfg, 4), device=cuda)
+    plan = net.compile_backend("fused").plan
+    layers = plan.meta["layers"]
+    isz = plan.buffers["tables"].dtype.itemsize
+    assert autotune.hopper_mode(layers, isz) == "resident"
+    k2 = {autotune.hopper_launch(autotune.KernelTuning(
+        mode="streamed", unit_tile=u), layers, isz) for u in (8, 16, 32)}
+    assert len(k2) == 1
+    fused = backends.get("fused")
+    every = [autotune.KernelTuning(mode=r["mode"], block_b=r["block_b"],
+                                   unit_tile=r["unit_tile"] or 8)
+             for r in autotune.roofline_candidates(
+                 layers, table_itemsize=isz, device="gpu")]
+    reps = 2
+    for cands, n_rows in ((None, 2), (every, 20)):
+        build.reset_counters()
+        tuned = fused.autotune_plan(plan, rows=2048, reps=reps,
+                                    candidates=cands, device=cuda)
+        counts = build.launch_counts()
+        assert counts["lut_cascade_resident"] == reps + 1
+        assert counts["lut_cascade_streamed"] == reps + 1
+        report = tuned.meta["tuning_report"]
+        assert len(report) == n_rows
+        best = {}
+        for row in report:
+            key = autotune.hopper_launch(
+                autotune.KernelTuning.from_meta(row["tuning"]), layers, isz)
+            best.setdefault(key, set()).add(row["best_s"])
+        assert set(best) == {("resident",)} | k2
+        assert all(len(v) == 1 for v in best.values())
+        won = autotune.KernelTuning.from_meta(tuned.meta["tuning"])
+        assert won.source == "measured"
+        assert best[autotune.hopper_launch(won, layers, isz)] == {
+            min(min(v) for v in best.values())}
+        codes = torch.from_numpy(np.random.RandomState(5).randint(
+            0, 2 ** layers[0][5], (1023, cfg.in_features)).astype(np.int32)
+        ).to(cuda)
+        want = backends.get("take").run(net.compile_backend("take").plan,
+                                        codes)
+        assert torch.equal(fused.run(tuned, codes), want)
+    with pytest.raises(ValueError, match="plain version"):
+        fused.autotune_plan(plan, candidates=[autotune.KernelTuning(
+            impl="xla")], device=cuda)
