@@ -81,9 +81,17 @@ shapes, and drives both main paths:
   version; losses against phase 12's unmeshed steps); whisper-small
   through ``launch.train --mesh 1,1``; ``dist.compress`` of a gemma-2b
   gradient leaf on the card against the CPU, and ``compressed_psum`` on a
-  one-rank group; the dry run (``launch.dryrun``, torch's fake process
-  group, meta ``DTensor``s) of gemma-2b ``train_4k`` on 16 x 16 and
-  mixtral-8x22b ``decode_32k`` on 2 x 16 x 16 in a subprocess;
+  one-rank group; tensor parallelism (slice 15): full-width gemma-2b
+  trained 2 steps through ``build_cell``'s train step on a ``(data,
+  model) = (1, 2)`` mesh of two processes of this script on the one card
+  (a gloo group between them), each block on its weight shards, K5 36
+  times a step a rank at 4 of the 8 heads, held against the plain version
+  and timed beside SDPA, losses and grad norms against phase 12's beside
+  bf16's summation-order floor, each rank's peak memory; a 1,024-token
+  prefill at the same mesh against the unmeshed prefill; the dry run
+  (``launch.dryrun``, torch's fake process group, meta ``DTensor``s) of
+  gemma-2b ``train_4k`` on 16 x 16 and mixtral-8x22b ``decode_32k`` on 2 x
+  16 x 16 in a subprocess;
 * the autotuner's measurement path (slice 14): ``autotune_plan`` on the
   fused plans of phase 4's ``nid`` (K1) and ``mnist`` (K2) artifacts at
   2,048 rows, each distinct launch of the grid (K1, or K2 on one cluster
@@ -4156,7 +4164,8 @@ def dryrun_cells(smi: str, art_dir: Path) -> dict:
         if rec["status"] != "ok":
             fail(f"dry run {arch} {shape} {mesh}: {rec.get('error')}")
         ma, coll = rec["memory_analysis"], rec["collectives"]
-        row = {"mesh_shape": rec["mesh_shape"], "devices": rec["devices"],
+        row = {"design": rec["design"], "mesh_shape": rec["mesh_shape"],
+               "devices": rec["devices"],
                "param_bytes_per_rank": ma["param_bytes_per_rank"],
                "argument_bytes_per_rank": ma["argument_size_in_bytes"],
                "peak_bytes_per_rank": ma["peak_bytes_per_rank"],
@@ -4164,10 +4173,11 @@ def dryrun_cells(smi: str, art_dir: Path) -> dict:
                "flops_per_rank": rec["cost_analysis"]["flops"],
                "collectives": {k: v for k, v in coll.items()
                                if k == "total_bytes" or v["count"]},
+               "tp_collectives": rec["tp_collectives"],
                "run_s": rec["run_s"], "wall_s": wall}
         out[f"{arch} {shape} {mesh}"] = row
         print(f"dry run {arch} {shape} on {rec['mesh_shape']} (fake group, "
-              f"meta DTensors): per rank parameters "
+              f"meta DTensors, design {rec['design']}): per rank parameters "
               f"{row['param_bytes_per_rank'] / 2**30:.3f} GiB, arguments "
               f"{row['argument_bytes_per_rank'] / 2**30:.3f} GiB, peak "
               f"{row['peak_bytes_per_rank'] / 2**30:.3f} GiB = "
@@ -4178,13 +4188,338 @@ def dryrun_cells(smi: str, art_dir: Path) -> dict:
     return out
 
 
+TP_MESH = (1, 2)             # (data, model) of the tensor-parallel step
+TP_RANKS = 2                 # processes, both on cuda:0
+TP_TIMEOUT = 900             # s, both rank processes together
+TP_PREFILL = 1024            # prompt tokens of the tensor-parallel prefill
+TP_DESIGN = "tp"             # gemma-2b's 8 heads split 4 a rank at model 2
+TP_PREFILL_K5 = 18           # one launch a layer of the prefill, each rank
+# TP vs phase 12's unmeshed steps, (step 1, step 2), relative.  Step 1's
+# loss is a forward of the same weights.  Its grad norm and step 2 sit on
+# bf16's reordering floor, which :func:`bf16_order_floor` measures in the
+# same call (the unmeshed step, each gradient summed over 4 row slices;
+# PERF.md §6 gives its readings): AdamW's first step is lr x sign(g), so
+# every gradient entry within rounding of 0 moves its parameter by up to
+# 2 lr.  A dropped or mis-scaled update moves step 2's loss by about a
+# step's change (3.7e-3), a missing partial sum the grad norms by far
+# more than these bounds.
+TP_LOSS_RTOL = (1e-4, 2e-3)
+TP_GRAD_NORM_RTOL = (1e-3, 2e-2)
+TP_FLOOR_SLICES = 4
+
+
+def _tp_gather_cols(t):
+    """This rank's last-dim piece of a tensor gathered whole on every rank
+    through the host (gloo's list all-gather on CPU tensors)."""
+    import torch
+    import torch.distributed as dist
+    parts = [torch.empty_like(t.cpu()) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.cpu().contiguous())
+    return torch.cat(parts, dim=-1)
+
+
+def tp_rank(rank: int, dev, seed: int, smi: str) -> dict:
+    """One rank of the two-rank tensor-parallel check, on ``dev`` in a
+    process of its own (the default group is gloo over the host): full-width
+    gemma-2b trained ``MESH_STEPS`` steps through ``build_cell``'s train
+    step on the ``TP_MESH`` mesh (each block on its weight shards, 4 of the
+    8 q heads a rank, the residual on 1,024 of the 2,048 columns, the tied
+    head on 128,000 vocabulary rows) from phase 12's seed, lr and batches,
+    K5 counted and recorded; rank 0 holds K5 at its layout against the
+    plain version and times it beside SDPA.  Then a ``TP_PREFILL``-token
+    bf16 prefill through ``build_cell``'s prefill step, its logits gathered
+    (rank 0 also runs the unmeshed prefill of the same weights first).
+    Returns this rank's report."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import lm_archs
+    from repro_torch.data import tokens
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_mod, steps
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+
+    cfg = lm_archs.GEMMA_2B
+    mesh = mesh_mod.make_mesh(TP_MESH, ("data", "model"), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    params = shd.distribute_params(steps.init_fn(cfg)(
+        torch.Generator(dev).manual_seed(seed), dev), mesh)
+    opt = steps.opt_init(params)
+    shape = steps.ShapeSpec("phase13 tp", TRAIN_SEQ, TRAIN_BATCH, "train")
+    fn, _ = steps.build_cell(cfg, shape, mesh, opt_cfg=optim.AdamWConfig(
+        lr=TRAIN_LR, weight_decay=0.1))
+    corpus = tokens.SyntheticCorpus(tokens.TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=seed))
+    losses_, norms, step_ms = [], [], []
+    torch.cuda.synchronize()
+    build.reset_counters()
+    with K5Recorder() as rec:
+        for s in range(MESH_STEPS):
+            toks = corpus.sample_batch(s, TRAIN_BATCH)
+            batch = steps.shard_batch(steps.batch_on(
+                {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, dev), mesh)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = fn(params, opt, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses_.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    local = {n: list(shd.local(p).shape) for n, p in
+             params.named_parameters() if n in ("embed", "blocks.0.attn.wq",
+                                                "blocks.0.ffn.w_down")}
+    out = {"rank": rank, "mesh": list(TP_MESH), "backend": "gloo",
+           "design": steps.design(cfg, mesh), "losses": losses_,
+           "grad_norms": norms, "step_ms": step_ms, "peak_bytes": peak,
+           "launches": counts, "k5_layouts": {_k5_label(k): n for k, n in
+                                               rec.counts.items()},
+           "local_shapes": local}
+    del params, opt, fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["k5_held"] = hold_k5_record(rec, "gemma-2b TP train")
+        out["kernel_row"] = k5_layout_row(
+            "K5 wgmma, gemma-2b TP training", "gemma-2b TP train", rec,
+            _largest(rec, True), smi)
+    dist.barrier()
+    # the prefill: the same bf16 weights unmeshed (rank 0), then split
+    prompt = torch.randint(0, cfg.vocab, (1, TP_PREFILL), device=dev,
+                           generator=torch.Generator(dev).manual_seed(seed))
+    model = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev,
+                           dtype=torch.bfloat16)
+    if rank == 0:
+        out["unmeshed_logits"] = lm.prefill(model, cfg, prompt,
+                                            TP_PREFILL)[0].float().cpu()
+    model = shd.distribute_params(model, mesh)
+    pre, _ = steps.build_cell(cfg, steps.ShapeSpec(
+        "phase13 tp prefill", TP_PREFILL, 1, "prefill"), mesh)
+    build.reset_counters()
+    logits, _ = pre(model, shd.distribute(prompt, mesh, shd.Spec(
+        shd.dp_axes(mesh), None)))
+    torch.cuda.synchronize()
+    out["prefill_launches"] = build.launch_counts()
+    out["prefill_logits_local"] = list(shd.local(logits).shape)
+    whole = _tp_gather_cols(shd.local(logits).float())
+    if rank == 0:
+        out["logits"] = whole
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_main(rank: int, tp_dir: Path, seed: int) -> None:
+    """``chip_smoke.py --tp-rank R``: join the gloo group of
+    ``TP_RANKS`` processes through a file store in ``tp_dir``, run
+    :func:`tp_rank` on ``cuda:0`` and save its report to
+    ``tp_dir/rank<R>.pt``."""
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tp_dir / "store"), TP_RANKS), rank=rank, world_size=TP_RANKS)
+    try:
+        out = tp_rank(rank, dev, seed, smi_line())
+        torch.save(out, tp_dir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def bf16_order_floor(dev, seed: int, phase12: dict) -> dict:
+    """Phase 12's first ``MESH_STEPS`` unmeshed gemma-2b steps (seed, lr,
+    batches) with each batch's gradient summed over ``TP_FLOOR_SLICES``
+    slices of its rows: the same sums in another order, so their losses
+    and grad norms against phase 12's are bf16's floor for any reordering
+    (the tensor-parallel step's among them)."""
+    import gc
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.data import tokens
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+
+    cfg = lm_archs.GEMMA_2B
+    params = steps.init_fn(cfg)(torch.Generator(dev).manual_seed(seed), dev)
+    opt = steps.opt_init(params)
+    leaves = steps.train_leaves(lm.trainable(params))
+    ocfg = optim.AdamWConfig(lr=TRAIN_LR, weight_decay=0.1)
+    parts = steps.make_loss_parts(cfg)
+    corpus = tokens.SyntheticCorpus(tokens.TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=seed))
+    losses_, norms = [], []
+    for s in range(MESH_STEPS):
+        toks = corpus.sample_batch(s, TRAIN_BATCH)
+        batch = steps.batch_on({"tokens": toks[:, :-1],
+                                "labels": toks[:, 1:]}, dev)
+        grads, loss_sum = None, 0.0
+        for i in range(TP_FLOOR_SLICES):
+            rows = {k: v[i::TP_FLOOR_SLICES] for k, v in batch.items()}
+            with torch.enable_grad():
+                loss, _, _ = parts(params, rows)
+                g = torch.autograd.grad(loss / TP_FLOOR_SLICES, leaves)
+            loss_sum += float(loss) / TP_FLOOR_SLICES
+            grads = list(g) if grads is None else [
+                a + b for a, b in zip(grads, g)]
+            del g
+        opt, om = optim.adamw_update(ocfg, leaves, grads, opt)
+        losses_.append(loss_sum)
+        norms.append(float(om["grad_norm"]))
+        del grads
+    del params, opt, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"slices": TP_FLOOR_SLICES, "losses": losses_, "grad_norms": norms,
+           "loss_rel_diff": [abs(a - b) / abs(b) for a, b in
+                             zip(losses_, phase12["losses"])],
+           "grad_norm_rel_diff": [abs(a - b) / abs(b) for a, b in
+                                  zip(norms, phase12["grad_norms"])]}
+    return out
+
+
+def tp_train_gemma(dev, smi: str, seed: int, art_dir: Path, phase12: dict,
+                   mesh11: dict) -> tuple:
+    """Full-width gemma-2b tensor-parallel at ``(data, model) = (1, 2)``:
+    two processes of this script (``--tp-rank``) on one card, a gloo group
+    between them (NCCL refuses two ranks on one device), each running
+    :func:`tp_rank`.  Fails unless both exit 0, the design is ``tp``, each
+    rank's losses and grad norms are within ``MESH_LOSS_RTOL`` of phase
+    12's unmeshed steps (``TP_LOSS_RTOL`` and ``TP_GRAD_NORM_RTOL`` a
+    step, beside bf16's floor measured first), the second loss below the
+    first, K5's wgmma kernel launched ``TRAIN_K5_PER_STEP``
+    times a step on each rank (TF32 never) and ``TP_PREFILL_K5`` times in
+    each rank's prefill, and the prefill's logits are within
+    ``DECODE_VS_PREFILL_REL`` of the unmeshed prefill's largest with the
+    same argmax.  Returns (the
+    report, rank 0's K5 kernel-line row)."""
+    import gc
+    import shutil
+    import torch
+
+    floor = bf16_order_floor(dev, seed, phase12)
+    print(f"bf16 order floor (phase 12's steps, each gradient summed over "
+          f"{TP_FLOOR_SLICES} row slices): losses {floor['losses']} (rel "
+          f"{floor['loss_rel_diff']}), grad norms {floor['grad_norms']} "
+          f"(rel {floor['grad_norm_rel_diff']}) [{smi}]", flush=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tp_dir = art_dir / "tp"
+    shutil.rmtree(tp_dir, ignore_errors=True)
+    tp_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(TP_RANKS):
+        with open(tp_dir / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+                 str(r), "--tp-dir", str(tp_dir), "--seed", str(seed)],
+                cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(TP_TIMEOUT - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        logs = "\n".join((tp_dir / f"rank{r}.log").read_text()[-3000:]
+                         for r, _ in bad)
+        fail(f"gemma-2b TP ranks {bad} (exit codes) after {wall:.0f} s:\n"
+             f"{logs}")
+    ranks = [torch.load(tp_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(TP_RANKS)]
+    want = phase12["losses"][:MESH_STEPS]
+    want_norms = phase12["grad_norms"][:MESH_STEPS]
+    from repro_torch.configs import lm_archs
+    vocab = lm_archs.GEMMA_2B.vocab      # the padded columns are -1e30
+    ref = ranks[0]["unmeshed_logits"][..., :vocab]
+    got = ranks[0]["logits"][..., :vocab]
+    logit_diff = float((got - ref).abs().max())
+    logit_scale = float(ref.abs().max())
+    argmax_same = bool((got.argmax(-1) == ref.argmax(-1)).all())
+    out = {"arch": "gemma-2b", "mesh": list(TP_MESH), "ranks": TP_RANKS,
+           "backend": "gloo (two processes on cuda:0; collectives cross the "
+                      "host)", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "unmeshed_losses": want, "unmeshed_grad_norms": want_norms,
+           "one_rank_mesh_peak_bytes": mesh11["peak_bytes"],
+           "prefill_tokens": TP_PREFILL, "prefill_max_abs_diff": logit_diff,
+           "prefill_largest_logit": logit_scale,
+           "prefill_argmax_same": argmax_same, "wall_s": wall,
+           "bf16_order_floor": floor, "loss_rtol": list(TP_LOSS_RTOL),
+           "grad_norm_rtol": list(TP_GRAD_NORM_RTOL),
+           "per_rank": [{k: v for k, v in r.items() if k not in (
+               "logits", "unmeshed_logits", "kernel_row")} for r in ranks]}
+    for r in ranks:
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], want)]
+        rel_n = [abs(a - b) / abs(b) for a, b in zip(r["grad_norms"],
+                                                      want_norms)]
+        k5 = r["launches"].get("flash_attention_wgmma", 0)
+        pk5 = r["prefill_launches"].get("flash_attention_wgmma", 0)
+        print(f"gemma-2b TP train rank {r['rank']} ({TP_MESH} mesh, design "
+              f"{r['design']}, gloo between two processes on one card: the "
+              f"collectives cross the host, so these times are no figure of "
+              f"TP speed): losses {[round(x, 5) for x in r['losses']]} vs "
+              f"unmeshed {[round(x, 5) for x in want]} (rel {rel}), grad "
+              f"norms {r['grad_norms']} vs {want_norms} (rel {rel_n}), step "
+              f"ms {[round(x, 1) for x in r['step_ms']]}, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB a rank vs the one-rank "
+              f"mesh's {mesh11['peak_bytes'] / 2**30:.2f} GiB, K5 wgmma "
+              f"{k5 / MESH_STEPS:g} a step at {r['k5_layouts']}, prefill K5 "
+              f"{pk5}, local shapes {r['local_shapes']} [{smi}]", flush=True)
+        if r["design"] != TP_DESIGN or not all(
+                math.isfinite(x) for x in r["losses"] + r["grad_norms"]) \
+                or len(rel) != MESH_STEPS or len(rel_n) != MESH_STEPS \
+                or not r["losses"][1] < r["losses"][0] \
+                or any(a > b for a, b in zip(rel, TP_LOSS_RTOL)) \
+                or any(a > b for a, b in zip(rel_n, TP_GRAD_NORM_RTOL)):
+            fail(f"gemma-2b TP rank {r['rank']}: design {r['design']}, "
+                 f"losses {r['losses']} vs {want} (rtol {TP_LOSS_RTOL}), "
+                 f"grad norms {r['grad_norms']} vs {want_norms} (rtol "
+                 f"{TP_GRAD_NORM_RTOL})")
+        if k5 != TRAIN_K5_PER_STEP * MESH_STEPS or pk5 != TP_PREFILL_K5 or \
+                r["launches"].get("flash_attention", 0):
+            fail(f"gemma-2b TP rank {r['rank']}: K5 wgmma {k5} in "
+                 f"{MESH_STEPS} steps (not {TRAIN_K5_PER_STEP} a step), "
+                 f"{pk5} in the prefill (not {TP_PREFILL_K5}); TF32 "
+                 f"{r['launches'].get('flash_attention', 0)}")
+    print(f"gemma-2b TP prefill ({TP_PREFILL} tokens, bf16, {TP_MESH}): "
+          f"logits [{list(got.shape)}] gathered from "
+          f"{ranks[0]['prefill_logits_local']} a rank, max |diff| "
+          f"{logit_diff:.4f} vs the unmeshed prefill's (largest "
+          f"{logit_scale:.3f}), argmax same {argmax_same}; two ranks "
+          f"{wall:.1f} s wall [{smi}]", flush=True)
+    if not argmax_same or not logit_diff <= DECODE_VS_PREFILL_REL \
+            * logit_scale:
+        fail(f"gemma-2b TP prefill: max |diff| {logit_diff} vs "
+             f"{DECODE_VS_PREFILL_REL} x {logit_scale}, argmax same "
+             f"{argmax_same}")
+    return out, ranks[0]["kernel_row"]
+
+
 def dist_phase(dev, smi: str, seed: int, art_dir: Path,
                phase12: dict) -> dict:
-    """Slice 13's main path: distribution.  Full-width gemma-2b through
-    ``build_cell``'s meshed train step on a one-rank NCCL mesh (K5 held at
-    its layouts) and whisper-small through ``launch.train --mesh 1,1``;
-    ``compress`` on the card; the dry run of a production cell a mesh
-    kind.  Every process group is ended before the next part."""
+    """Slices 13 and 15's main path: distribution.  Full-width gemma-2b
+    through ``build_cell``'s meshed train step on a one-rank NCCL mesh (K5
+    held at its layouts) and whisper-small through ``launch.train --mesh
+    1,1``; ``compress`` on the card; gemma-2b tensor-parallel on two ranks
+    of one card (:func:`tp_train_gemma`); the dry run of a production cell
+    a mesh kind.  Every process group is ended before the next part."""
     t0 = time.perf_counter()
     out, rows = {}, []
     out["gemma-2b"], grec, grad = mesh_train_gemma(dev, smi, seed, phase12)
@@ -4198,6 +4533,11 @@ def dist_phase(dev, smi: str, seed: int, art_dir: Path,
     out["whisper-small"], wrec = mesh_train_whisper(dev, smi)
     out["k5_held"]["whisper-small meshed train"] = hold_k5_record(
         wrec, "whisper-small meshed train")
+    out["gemma-2b tp"], row = tp_train_gemma(dev, smi, seed, art_dir,
+                                             phase12, out["gemma-2b"])
+    out["k5_held"]["gemma-2b TP train"] = out["gemma-2b tp"]["per_rank"][0][
+        "k5_held"]
+    rows.append(row)
     out["dryrun"] = dryrun_cells(smi, art_dir)
     out["kernels"] = rows
     out["seconds"] = time.perf_counter() - t0
@@ -4836,7 +5176,13 @@ def main(seed: int) -> dict:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help="(internal) one rank of phase 13's TP check")
+    ap.add_argument("--tp-dir", default=None)
     args = ap.parse_args()
+    if args.tp_rank is not None:
+        tp_rank_main(args.tp_rank, Path(args.tp_dir), args.seed)
+        sys.exit(0)
     rep = main(args.seed)
     import torch
     out_dir = ROOT / "build" / "chip_smoke"
@@ -4916,6 +5262,14 @@ if __name__ == "__main__":
             "unmeshed_peak_bytes", "k5_launches_per_step")},
         "whisper-small_mesh_1_1": {key: di["whisper-small"][key] for key in (
             "losses", "k5_launches_per_step", "step_ms")},
+        "gemma-2b_tp_1_2": {
+            **{key: di["gemma-2b tp"][key] for key in (
+                "backend", "unmeshed_losses", "unmeshed_grad_norms",
+                "one_rank_mesh_peak_bytes", "prefill_max_abs_diff",
+                "prefill_argmax_same", "wall_s")},
+            "ranks": [{key: r[key] for key in (
+                "losses", "grad_norms", "step_ms", "peak_bytes", "design",
+                "k5_layouts")} for r in di["gemma-2b tp"]["per_rank"]]},
         "compress": {key: di["compress"][key] for key in (
             "card_equals_cpu", "psum_equals_decompress", "compress_ms")},
         "dryrun": {k: v for k, v in di["dryrun"].items()},

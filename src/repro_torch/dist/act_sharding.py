@@ -10,14 +10,25 @@ code runs unsharded on one device and under a mesh without change.
 
 Inside a context a ``DTensor`` is redistributed to the resolved
 placements.  The port's meshed steps (``launch.steps``) run the model on
-each rank's local tensors (its slice of the batch, every weight gathered
-at its use by :func:`gathered`), so their activations are plain tensors
-and pass through: every rank of ``model`` computes the same layer whole.
+each rank's local tensors, so their activations are plain tensors and
+pass through :func:`constrain`.  Two designs share the context:
+
+* tensor parallel (the ``dense`` and ``vlm`` families, ``lm.tp_view``):
+  each weight is read as this rank's shard (:func:`tp_local`), the
+  residual stream is sharded on ``embed`` as the reference constrains it,
+  and the model gathers an activation over ``model`` where a whole row is
+  needed (:func:`gather_model`: the norms' rows and weights, attention's
+  k and v and its merged heads, the FFN's hidden units).  The helpers read
+  a tensor's width against the whole one, so the same model code runs
+  unsharded;
+* gather (every other family, ``lm.local_view``): each weight is
+  all-gathered whole at its use (:func:`gathered`), and every rank of
+  ``model`` computes the same layer whole.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -131,3 +142,243 @@ def local(t):
     """This rank's shard of a ``DTensor``; any other value as it is."""
     from torch.distributed.tensor import DTensor
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over ``model``: shards, gathers and vocabulary reductions
+# ---------------------------------------------------------------------------
+
+# bytes of the tensor-parallel collectives by purpose while :func:`traffic`
+# records (None: not recording)
+_TRAFFIC: Optional[Dict[str, int]] = None
+
+
+@contextlib.contextmanager
+def traffic():
+    """Record, inside the context, the output bytes of every collective
+    the tensor-parallel helpers issue, by ``"<what> <kind>"`` (``"ffn
+    all-gather"``, ``"ffn reduce-scatter"``, ``"head all-to-all"``, ...):
+    the dry run's breakdown of its collectives."""
+    global _TRAFFIC
+    prev, _TRAFFIC = _TRAFFIC, {}
+    try:
+        yield _TRAFFIC
+    finally:
+        _TRAFFIC = prev
+
+
+def _note(what: str, kind: str, t: torch.Tensor) -> torch.Tensor:
+    if _TRAFFIC is not None:
+        key = f"{what} {kind}"
+        _TRAFFIC[key] = _TRAFFIC.get(key, 0) + t.numel() * t.element_size()
+    return t
+
+def tp_local(t: torch.Tensor) -> torch.Tensor:
+    """A parameter as the tensor-parallel design computes with it: a
+    ``DTensor``'s local shard, its gradient partial over the data-parallel
+    axes and, over ``model``, the shard's own (a ``Shard``) or partial (a
+    replicated leaf: each rank of ``model`` computes the replicated part of
+    a layer on its own heads, columns or vocabulary); any other tensor as
+    it is."""
+    from torch.distributed.tensor import DTensor, Partial
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    dp = dp_axes(mesh)
+    return t.to_local(grad_placements=[
+        Partial() if a in dp or not pl.is_shard() else pl
+        for a, pl in zip(axis_names(mesh), t.placements)])
+
+
+def model_group():
+    """(process group, size, rank) of the active mesh's ``model`` axis;
+    (None, 1, 0) outside the rules or on a mesh without one."""
+    mesh = _ACTIVE_MESH
+    if mesh is None or "model" not in axis_names(mesh):
+        return None, 1, 0
+    size = axis_sizes(mesh)["model"]
+    if size == 1:
+        return None, 1, 0
+    return mesh.get_group("model"), size, mesh.get_local_rank("model")
+
+
+def chunk(n: int) -> Tuple[int, int]:
+    """(start, size) of this rank's piece of ``n`` entries split over
+    ``model`` as ``torch.chunk`` (and so ``DTensor``'s ``Shard``) splits
+    them: pieces of ``ceil(n / size)``, the last short, trailing ranks
+    possibly empty."""
+    _, size, rank = model_group()
+    c = -(-n // size)
+    start = min(rank * c, n)
+    return start, min(c, n - start)
+
+
+def _chunk_width(n: int) -> int:
+    return -(-n // model_group()[1])
+
+
+def _eager_gather(group, t: torch.Tensor) -> bool:
+    """Whether an all-gather on ``group`` takes the eager c10d call: gloo
+    with CUDA tensors (two ranks sharing one card).  PyTorch 2.11's
+    functional all-gather ends the process with a segmentation fault there
+    (its eager call, its reduce-scatter and its all-to-all do not)."""
+    import torch.distributed as dist
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _all_gather0(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """``[c, ...]`` from each rank -> ``[size * c, ...]`` in rank order."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    t = t.contiguous()
+    if _eager_gather(group, t):
+        out = t.new_empty((size * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=group)
+        return out
+    return funcol.wait_tensor(funcol.all_gather_tensor(t, 0, group))
+
+
+def _reduce_scatter0(t: torch.Tensor, group) -> torch.Tensor:
+    """``[size * c, ...]`` summed over the ranks, this rank's ``[c, ...]``."""
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+        t.contiguous(), "sum", 0, group))
+
+
+def _all_to_all0(t: torch.Tensor, group) -> torch.Tensor:
+    """``[size, ...]``: piece ``s`` to rank ``s``; returns the pieces each
+    rank sent this one, in rank order."""
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_to_all_single(
+        t.contiguous(), None, None, group))
+
+
+def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+class _GatherModel(torch.autograd.Function):
+    """This rank's columns ``[..., k]`` of a ``[..., n]`` tensor -> the
+    whole, all-gathered over ``model`` (each piece padded to the chunk
+    width); the backward reduce-scatters the partial gradients of the
+    whole and keeps this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, n, what):
+        group, size, _ = model_group()
+        c = _chunk_width(n)
+        ctx.k, ctx.group, ctx.width, ctx.what = x.shape[-1], group, \
+            size * c, what
+        whole = _all_gather0(_pad_last(x, c).movedim(-1, 0), group, size)
+        return _note(what, "all-gather", whole).movedim(0, -1)[..., :n]
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _pad_last(g, ctx.width).movedim(-1, 0)
+        mine = _note(ctx.what, "reduce-scatter",
+                     _reduce_scatter0(g, ctx.group)).movedim(0, -1)
+        return mine[..., :ctx.k], None, None
+
+
+def gather_model(x: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    """``x`` whole on its last dim of ``n``: itself when it is whole
+    already (a replicated weight's output, or no ``model`` axis), else its
+    column pieces all-gathered over ``model`` (:func:`chunk`'s split).
+    Differentiable: the backward is a reduce-scatter.  ``what`` names the
+    activation for :func:`traffic`."""
+    if x.shape[-1] == n:
+        return x
+    if model_group()[0] is None or x.shape[-1] != chunk(n)[1]:
+        raise ValueError(f"a [..., {x.shape[-1]}] tensor is not this rank's "
+                         f"piece of {n} columns over 'model'")
+    return _GatherModel.apply(x, n, what)
+
+
+def model_slice(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's :func:`chunk` of a whole tensor's ``dim`` (no
+    communication; the gradient of the rest is 0 on this rank)."""
+    start, size = chunk(x.shape[dim])
+    return x.narrow(dim, start, size)
+
+
+class _ColumnsToRows(torch.autograd.Function):
+    """This rank's columns ``[N, k]`` of an ``[N, C]`` table -> its rows
+    ``[N / size, C]``: one all-to-all over ``model`` (``Shard(1)`` to
+    ``Shard(0)``); the backward is the reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, t, n_cols):
+        group, size, _ = model_group()
+        c = _chunk_width(n_cols)
+        rows = t.shape[0] // size
+        ctx.k, ctx.group, ctx.size, ctx.c = t.shape[1], group, size, c
+        pieces = _note("head", "all-to-all", _all_to_all0(
+            _pad_last(t, c).reshape(size, rows, c), group))
+        return pieces.permute(1, 0, 2).reshape(rows, size * c)[:, :n_cols]
+
+    @staticmethod
+    def backward(ctx, g):
+        size, c, rows = ctx.size, ctx.c, g.shape[0]
+        g = _pad_last(g, size * c).reshape(rows, size, c)
+        pieces = _note("head", "all-to-all",
+                       _all_to_all0(g.permute(1, 0, 2), ctx.group))
+        return pieces.reshape(size * rows, c)[:, :ctx.k], None
+
+
+def rows_from_columns(t: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """This rank's rows of a table whose columns (``n_cols`` whole) are
+    split over ``model`` (the tied embedding ``[Vp, D]``, placed
+    ``Shard(1)``, read as the head's vocabulary shard); a whole table's
+    rows are sliced.  The rows must split evenly."""
+    _, size, _ = model_group()
+    if t.shape[0] % size:
+        raise ValueError(f"{t.shape[0]} rows do not split over {size} ranks "
+                         "of 'model'")
+    if t.shape[1] == n_cols:
+        return model_slice(t, 0)
+    return _ColumnsToRows.apply(t, n_cols)
+
+
+class _SumModel(torch.autograd.Function):
+    """The sum over ``model`` of each rank's term; every rank's term gets
+    the sum's gradient as it is (the sum is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed import _functional_collectives as funcol
+        return _note("vocab", "all-reduce", funcol.wait_tensor(
+            funcol.all_reduce(x.contiguous(), "sum", model_group()[0])))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def sum_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``model`` (itself without a ``model`` axis)."""
+    return x if model_group()[0] is None else _SumModel.apply(x)
+
+
+def max_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s elementwise maximum over ``model``, outside the graph (a
+    softmax's shift)."""
+    from torch.distributed import _functional_collectives as funcol
+    group = model_group()[0]
+    x = x.detach()
+    if group is None:
+        return x
+    return _note("vocab", "all-reduce", funcol.wait_tensor(
+        funcol.all_reduce(x.contiguous(), "max", group)))
+
+
+def vocab_start(padded_vocab: int, width: int) -> Optional[int]:
+    """The first vocabulary column of a head or logits ``width`` wide:
+    None when it is the whole ``padded_vocab``, else this rank's
+    :func:`chunk` start."""
+    if width == padded_vocab:
+        return None
+    start, size = chunk(padded_vocab)
+    if size != width:
+        raise ValueError(f"{width} vocabulary columns are not this rank's "
+                         f"piece of {padded_vocab}")
+    return start

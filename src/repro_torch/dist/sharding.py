@@ -64,8 +64,14 @@ full = act_sharding.full
 local = act_sharding.local
 
 
+def is_sharded(shape: Tuple[int, ...]) -> bool:
+    """Whether the rules split a (stacked) leaf of ``shape`` over
+    ``model``: 2 or more dims, the trailing one at least 512 wide."""
+    return len(shape) >= 2 and shape[-1] >= _MIN_MODEL_DIM
+
+
 def _leaf_spec(shape: Tuple[int, ...]) -> Spec:
-    if len(shape) >= 2 and shape[-1] >= _MIN_MODEL_DIM:
+    if is_sharded(shape):
         return Spec(*([None] * (len(shape) - 1) + ["model"]))
     return Spec()
 

@@ -11,11 +11,19 @@ unsupported operations fail here, which is the point.  Each record holds:
 
 * ``status``: ``ok``, ``skipped`` (with ``reason``, from
   ``steps.cell_runnable``) or ``error`` (with ``error`` and ``traceback``);
+* ``design``: how the step computes over ``model`` (``steps.design``:
+  ``tp``, ``tp (q whole)`` or ``gather``);
 * ``collectives``: count and output bytes by kind (``all-reduce``,
   ``all-gather``, ``reduce-scatter``, ``all-to-all``,
   ``collective-permute``) and ``total_bytes``, counted by
   ``torch.distributed.tensor.debug.CommDebugMode`` (the counterpart of
   the reference's HLO parse);
+* ``tp_collectives``: the tensor-parallel design's share of those bytes
+  by purpose and kind (``act_sharding.traffic``: ``ffn all-gather``, the
+  FFN's hidden units gathered before ``w_down``, and its backward's
+  ``ffn reduce-scatter``; ``head all-to-all``, the tied table's
+  vocabulary rows; ``rows``, ``kv``, ``q``, ``heads``, ``norm`` and
+  ``vocab``), empty for the gather design;
 * ``cost_analysis.flops``: rank 0's flops, from
   ``torch.utils.flop_counter.FlopCounterMode`` (the meta forward of K5
   is its plain version a block of q rows at a time, the same products);
@@ -25,10 +33,11 @@ unsupported operations fail here, which is the point.  Each record holds:
   included, from ``torch.distributed._tools.mem_tracker.MemTracker``);
 * ``devices``, ``mesh_shape``, ``run_s``.
 
-The numbers are those of the port's meshed step as it stands
-(:data:`DESIGN`): every weight is all-gathered whole at its use, so every
-rank of ``model`` computes each layer whole.  A tensor-parallel layout
-would hold smaller flops and peaks a rank.
+The numbers are those of the port's meshed step as it stands: the dense
+and vlm families compute each block on their weight shards (``tp``; the
+q heads whole where they do not split evenly, ``tp (q whole)``), the
+other families gather every weight whole at its use, every rank of
+``model`` computing each layer whole (``gather``).
 
 The reference's ``hlo_bytes``, ``lower_s``, ``compile_s``, its HLO dump
 and its loop-corrected ``analysis`` have no counterpart: nothing is
@@ -45,7 +54,7 @@ Usage::
   python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k \\
       --mesh single
   python -m repro_torch.launch.dryrun --all     # every cell, cached
-  python -m repro_torch.launch.dryrun --all --summary experiments/TORCH_dryrun.json
+  python -m repro_torch.launch.dryrun --all --summary experiments/TORCH_dryrun_tp.json
 """
 from __future__ import annotations
 
@@ -66,10 +75,6 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 
 # the card's memory: 80 GiB (H100 SXM)
 DEVICE_BYTES = 80 * 2 ** 30
-# what the records measure (the step's layout, see the module docstring)
-DESIGN = ("gather-everything: each weight all-gathered whole at its use, "
-          "every rank of 'model' computing each layer whole; no "
-          "tensor-parallel matmuls")
 # a smoke cell's largest sequence and batch
 SMOKE_SEQ, SMOKE_BATCH = 64, 8
 
@@ -182,6 +187,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import lm_archs
+    from repro_torch.dist import act_sharding
     from repro_torch.launch import mesh as mesh_mod, steps
 
     cfg = lm_archs.smoke(arch) if smoke else lm_archs.get(arch)
@@ -210,7 +216,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     flops = FlopCounterMode(display=False)
     mem = MemTracker()
     mem.track_external(*[a for a in args if isinstance(a, torch.nn.Module)])
-    with mem, comm, flops:
+    with mem, comm, flops, act_sharding.traffic() as tp_bytes:
         fn(*args)
     peak = mem.get_tracker_snapshot("peak")
     peak_bytes = max((int(v.get("Total", 0)) for v in peak.values()),
@@ -218,6 +224,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     record = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
         "mesh_shape": list(mshape), "devices": n_dev, "status": "ok",
+        "design": steps.design(cfg, mesh),
         "run_s": round(time.time() - t0, 2),
         "memory_analysis": {
             "argument_size_in_bytes": _local_bytes(args),
@@ -227,6 +234,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         },
         "cost_analysis": {"flops": float(flops.get_total_flops())},
         "collectives": comm.summary(),
+        "tp_collectives": dict(sorted(tp_bytes.items())),
     }
     if verbose:
         print(json.dumps(record, indent=2))
@@ -277,7 +285,7 @@ def summary(records: List[Dict]) -> Dict:
         else:
             ma = r["memory_analysis"]
             row.update(
-                mesh_shape=r["mesh_shape"],
+                design=r["design"], mesh_shape=r["mesh_shape"],
                 param_bytes_per_rank=ma["param_bytes_per_rank"],
                 argument_bytes_per_rank=ma["argument_size_in_bytes"],
                 peak_bytes_per_rank=ma["peak_bytes_per_rank"],
@@ -285,12 +293,13 @@ def summary(records: List[Dict]) -> Dict:
                                        / DEVICE_BYTES, 4),
                 flops_per_rank=r["cost_analysis"]["flops"],
                 collectives={k: v for k, v in r["collectives"].items()
-                             if k == "total_bytes" or v["count"]})
+                             if k == "total_bytes" or v["count"]},
+                tp_collectives=r["tp_collectives"])
         cells.append(row)
     count = defaultdict(int)
     for c in cells:
         count[c["status"]] += 1
-    return {"design": DESIGN, "device_bytes": DEVICE_BYTES,
+    return {"device_bytes": DEVICE_BYTES,
             "counts": dict(count),
             "errors": [c for c in cells if c["status"] == "error"],
             "cells": cells}

@@ -5,12 +5,22 @@ the training state the reference's checkpoint trees.
 The distribution half builds a (architecture x shape x mesh) cell: the
 abstract arguments (meta tensors: no storage), their spec trees
 (``dist.sharding``), and :func:`build_cell`'s step over ``DTensor``
-arguments.  A meshed step runs the model on each rank's local tensors:
-its slice of the batch over the data-parallel axes, each weight
-all-gathered at its use (``lm.local_view``), so every rank of ``model``
-computes each layer whole; gradients come back reduced over the
-data-parallel axes and placed as their parameters, and AdamW steps each
-rank's shards (:func:`make_mesh_train_step`).
+arguments.  A meshed step runs the model on each rank's local tensors,
+its slice of the batch over the data-parallel axes, through the view
+:func:`design` names (``lm.mesh_view``):
+
+* ``tp`` / ``tp (q whole)``, the ``dense`` and ``vlm`` families: each
+  block computes on this rank's weight shards over ``model``
+  (``lm.tp_view``), with its own q heads (or, where the heads do not split
+  evenly, all of them), the residual sharded on ``embed``, the head and
+  the loss on its vocabulary columns;
+* ``gather``, the other families: each weight all-gathered at its use
+  (``lm.local_view``), every rank of ``model`` computing each layer whole.
+
+Gradients come back reduced over the data-parallel axes (and, for a
+replicated leaf of a ``tp`` step, over ``model``) and placed as their
+parameters, and AdamW steps each rank's shards
+(:func:`make_mesh_train_step`).
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ from torch import nn
 
 from repro_torch.dist import act_sharding, sharding as shd
 from repro_torch.dist.sharding import Spec
-from repro_torch.models import lm, whisper
+from repro_torch.models import attention, lm, whisper
 from repro_torch.models.config import ArchConfig
 from repro_torch.train import losses, optim
 
@@ -92,7 +102,8 @@ def make_loss_parts(cfg: ArchConfig):
             head = lm.head_matrix(params, cfg)
         loss, count = losses.chunked_cross_entropy(
             hidden, head, batch["labels"], vocab=cfg.vocab,
-            chunk=cfg.loss_chunk)
+            chunk=cfg.loss_chunk, vocab_start=act_sharding.vocab_start(
+                cfg.padded_vocab, head.shape[-1]))
         return loss, count, aux
     return parts
 
@@ -292,6 +303,22 @@ def _with_rules(fn, mesh):
     return wrapped
 
 
+def design(cfg: ArchConfig, mesh) -> str:
+    """How a meshed step of ``cfg`` computes over ``model``: ``tp`` (each
+    rank its weight shards and its own q heads), ``tp (q whole)`` (the
+    same, q gathered whole: ``wq`` is not split, or its heads do not split
+    evenly, see ``attention.local_heads``) or ``gather`` (each weight
+    gathered whole, the families outside ``lm.TP_FAMILIES``)."""
+    if cfg.family not in lm.TP_FAMILIES:
+        return "gather"
+    size = act_sharding.axis_sizes(mesh).get("model", 1)
+    spec = lm.attn_spec(cfg)
+    split = shd.is_sharded((cfg.d_model, spec.n_heads * spec.head_dim))
+    if size == 1 or (split and attention.local_heads(spec, size)):
+        return "tp"
+    return "tp (q whole)"
+
+
 def _dp_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of ``t`` over the data-parallel axes of ``mesh``."""
     from torch.distributed import _functional_collectives as funcol
@@ -319,13 +346,18 @@ def make_mesh_train_step(cfg: ArchConfig, mesh, *,
     by the sharding rules (:func:`shd.distribute_params`), the batch
     ``DTensor``s split over the data-parallel axes (:func:`shard_batch`).
 
-    Each rank computes the loss of its rows with every weight gathered at
-    its use (the ranks of ``model`` compute the same); its objective is
-    its share of the global one (its token sum over the global count, its
-    rows' aux mean over the global rows), so the gradients summed over the
-    data-parallel axes are those of the unmeshed step.  Metrics are the
-    global ``loss``, ``total_loss``, ``tokens``, ``grad_norm`` and ``lr``,
-    the same on every rank.  Parameters update in place."""
+    Each rank computes the loss of its rows through ``lm.mesh_view``: on
+    its weight shards, the head's vocabulary columns and the loss reduced
+    over ``model`` (the :data:`lm.TP_FAMILIES`), or with every weight
+    gathered at its use (the others: the ranks of ``model`` compute the
+    same).  Its objective is its share of the global one (its token sum
+    over the global count, its rows' aux mean over the global rows), so the
+    gradients summed over the data-parallel axes (and over ``model`` for a
+    replicated leaf of the tensor-parallel design, where each rank's part
+    is its heads' and columns') are those of the unmeshed step: a sharded
+    leaf's come back already placed on its shards.  Metrics are the global
+    ``loss``, ``total_loss``, ``tokens``, ``grad_norm`` and ``lr``, the
+    same on every rank.  Parameters update in place."""
     ocfg = opt_cfg or optim.AdamWConfig(lr=3e-4, weight_decay=0.1)
     parts = make_loss_parts(cfg)
 
@@ -335,7 +367,7 @@ def make_mesh_train_step(cfg: ArchConfig, mesh, *,
         rows_l = torch.tensor(float(local["tokens"].shape[0]),
                               device=local["tokens"].device)
         with act_sharding.activation_rules(mesh), torch.enable_grad():
-            loss_l, count_l, aux_l = parts(lm.local_view(params), local)
+            loss_l, count_l, aux_l = parts(lm.mesh_view(params, cfg), local)
             count = _dp_sum(count_l.detach(), mesh)
             rows = _dp_sum(rows_l, mesh)
             objective = loss_l * (count_l / count) \
@@ -379,19 +411,31 @@ def _to_compute(t: torch.Tensor, mesh, dim: Optional[int],
 
 
 def _from_compute(t: torch.Tensor, mesh, dim: Optional[int], split: bool,
-                  spec: Spec):
-    """A rank's output rows as the ``DTensor`` the cell's ``spec`` asks."""
-    from torch.distributed.tensor import DTensor
-    d = DTensor.from_local(t, mesh, _compute_placements(mesh, dim, split),
-                           run_check=False)
+                  spec: Spec, whole: Optional[Tuple[int, ...]] = None):
+    """A rank's output rows as the ``DTensor`` the cell's ``spec`` asks.
+    ``whole``: the global shape of a tensor whose last dim ``t`` holds
+    this rank's piece of over ``model`` (tensor-parallel logits; ``t``'s
+    own shape but the batch otherwise)."""
+    from torch.distributed.tensor import DTensor, Shard
+    pl = _compute_placements(mesh, dim, split)
+    if whole is None:
+        d = DTensor.from_local(t, mesh, pl, run_check=False)
+    else:
+        model = act_sharding.axis_names(mesh).index("model")
+        pl[model] = Shard(t.dim() - 1)
+        d = DTensor.from_local(t, mesh, pl, run_check=False, shape=whole,
+                               stride=torch.empty(whole,
+                                                  device="meta").stride())
     return d.redistribute(mesh, shd.placements(mesh, spec))
 
 
 def _serve_step(cfg: ArchConfig, shape: ShapeSpec, mesh):
     """The prefill or decode step of a cell over ``DTensor`` arguments:
     each rank runs its rows (every row when the batch does not divide the
-    data-parallel axes), the outputs placed as the reference's out
-    shardings (logits ``(dp, model)``, the cache by its specs)."""
+    data-parallel axes) through ``lm.mesh_view``, the outputs placed as the
+    reference's out shardings (logits ``(dp, model)``: a tensor-parallel
+    step's come out as this rank's vocabulary columns; the cache by its
+    specs, k and v whole on every rank of ``model``)."""
     b = shape.global_batch
     split = shd.batch_divides(mesh, b)
     dp = shd.dp_axes(mesh)
@@ -399,7 +443,10 @@ def _serve_step(cfg: ArchConfig, shape: ShapeSpec, mesh):
     logits_spec = Spec(dp if split else None, "model")
 
     def outputs(logits, cache):
-        return (_from_compute(logits, mesh, 0, split, logits_spec),
+        whole = None
+        if logits.shape[-1] != cfg.padded_vocab:
+            whole = (b, cfg.padded_vocab)
+        return (_from_compute(logits, mesh, 0, split, logits_spec, whole),
                 {k: _from_compute(v, mesh, _batch_dim(cfg, k), split,
                                   cspecs[k]) for k, v in cache.items()})
 
@@ -408,14 +455,14 @@ def _serve_step(cfg: ArchConfig, shape: ShapeSpec, mesh):
 
         def prefill(params, tokens, *audio):
             ins = [_to_compute(t, mesh, 0, split) for t in (tokens, *audio)]
-            return outputs(*step(lm.local_view(params), *ins))
+            return outputs(*step(lm.mesh_view(params, cfg), *ins))
         return prefill
     step = make_decode_step(cfg)
 
     def decode(params, cache, tokens):
         local = {k: _to_compute(v, mesh, _batch_dim(cfg, k), split)
                  for k, v in cache.items()}
-        return outputs(*step(lm.local_view(params), local,
+        return outputs(*step(lm.mesh_view(params, cfg), local,
                              _to_compute(tokens, mesh, 0, split)))
     return decode
 

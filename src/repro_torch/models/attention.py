@@ -13,6 +13,13 @@ KV caches are ring buffers of length ``window`` (SWA archs) or the
 context: slot(p) = p % W, with stored absolute positions giving the
 validity and causality mask.  Decode attention is a plain einsum and
 softmax over the ring, as the reference left it to XLA.
+
+On a tensor-parallel view (``lm.tp_view``) the projections give this
+rank's column shards: q keeps its own heads where they split evenly
+(:func:`local_heads`), else it is gathered whole; k and v are gathered
+whole (what the cache's spec holds: replicated over ``model``); the
+heads' output is gathered before ``wo``, whose column shard gives this
+rank's ``embed`` columns of the residual update.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.dist.act_sharding import constrain
+from repro_torch.dist import act_sharding
+from repro_torch.dist.act_sharding import constrain, gather_model
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -95,15 +103,43 @@ def _positions_tensor(positions: Positions, device) -> torch.Tensor:
     return positions
 
 
+def local_heads(spec: AttnSpec, size: int) -> Optional[int]:
+    """The q heads each rank of a ``model`` axis of ``size`` keeps when
+    ``wq``'s columns are split over it: ``n_heads / size`` when that
+    divides and a rank's heads fill whole KV groups or lie in one; None
+    otherwise (q is gathered whole and every rank runs every head)."""
+    h, g = spec.n_heads, spec.n_heads // spec.n_kv_heads
+    if h % size:
+        return None
+    hl = h // size
+    return hl if hl % g == 0 or g % hl == 0 else None
+
+
+def _head_split(spec: AttnSpec, q: torch.Tensor) -> Tuple[torch.Tensor,
+                                                           slice]:
+    """q ``[B, S, cols]`` (whole, or this rank's columns) -> (q with the
+    heads this rank runs, the KV heads they attend to)."""
+    h, hk, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    if q.shape[-1] == h * hd:
+        return q, slice(0, hk)
+    hl = local_heads(spec, act_sharding.model_group()[1])
+    if hl is None:
+        return gather_model(q, h * hd, "q"), slice(0, hk)
+    first, g = act_sharding.chunk(h * hd)[0] // hd, h // hk
+    return q, slice(first // g, (first + hl - 1) // g + 1)
+
+
 def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
                  positions: Positions, freqs: Optional[torch.Tensor]
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x ``[B, S, D]`` -> q ``[B, Hkv, G, S, hd]``, k/v ``[B, Hkv, S, hd]``.
-    ``positions``: shared ``[S]`` (a range or a tensor) or per-row ``[B, S]``
-    absolute positions for rope."""
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, slice]:
+    """x ``[B, S, D]`` -> q ``[B, Hkv', G', S, hd]``, k/v ``[B, Hkv, S,
+    hd]`` and the slice of KV heads q's heads attend to (``Hkv'`` of them,
+    each with ``G'`` q heads): all of them unless a tensor-parallel view
+    keeps this rank's heads (:func:`local_heads`).  ``positions``: shared
+    ``[S]`` (a range or a tensor) or per-row ``[B, S]`` absolute positions
+    for rope."""
     b, s, _ = x.shape
-    h, hk, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    g = h // hk
+    hk, hd = spec.n_kv_heads, spec.head_dim
     dt = x.dtype
     q = x @ p.wq.to(dt)
     k = x @ p.wk.to(dt)
@@ -112,7 +148,10 @@ def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
-    q = q.reshape(b, s, hk, g, hd).permute(0, 2, 3, 1, 4)
+    k, v = gather_model(k, hk * hd, "kv"), gather_model(v, hk * hd, "kv")
+    q, kv = _head_split(spec, q)
+    hk_q = kv.stop - kv.start
+    q = q.reshape(b, s, hk_q, -1, hd).permute(0, 2, 3, 1, 4)
     k = k.reshape(b, s, hk, hd).permute(0, 2, 1, 3)
     v = v.reshape(b, s, hk, hd).permute(0, 2, 1, 3)
     # constrained before rope / qk-norm, as the reference places them
@@ -130,7 +169,7 @@ def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
             qpos, kpos = pos[None, None, None], pos[None, None]
         q = layers.apply_rope(q, qpos, freqs)
         k = layers.apply_rope(k, kpos, freqs)
-    return q, k, v
+    return q, k, v, kv
 
 
 def flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -177,15 +216,25 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, hk * g * hd)
 
 
+def _out_proj(p: Attention, spec: AttnSpec, o: torch.Tensor,
+              dt: torch.dtype) -> torch.Tensor:
+    """The heads' output ``[B, Hkv', G', S, hd]`` through ``wo``, gathered
+    over ``model`` first when it holds this rank's heads."""
+    o = gather_model(_merge_heads(o), spec.n_heads * spec.head_dim,
+                     "heads")
+    return o @ p.wo.to(dt)
+
+
 def attention_train(p: Attention, spec: AttnSpec, x: torch.Tensor,
                     positions: Positions, freqs: Optional[torch.Tensor]
                     ) -> torch.Tensor:
     """Full-sequence attention (training, whisper's encoder). x ``[B, S,
     D]``; differentiable (K5's ``FlashAttentionFn``)."""
-    q, k, v = _project_qkv(p, spec, x, positions, freqs)
-    o = flash_scan(q, k, v, causal=spec.causal, window=spec.window,
-                   q_positions=positions, k_positions=positions)
-    return _merge_heads(o) @ p.wo.to(x.dtype)
+    q, k, v, kv = _project_qkv(p, spec, x, positions, freqs)
+    o = flash_scan(q, k[:, kv], v[:, kv], causal=spec.causal,
+                   window=spec.window, q_positions=positions,
+                   k_positions=positions)
+    return _out_proj(p, spec, o, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -247,11 +296,12 @@ def attention_prefill(p: Attention, spec: AttnSpec, x: torch.Tensor,
                       context: int) -> Tuple[torch.Tensor, KVCache]:
     """Prefill attention of one layer: output ``[B, S, D]`` and the ring
     cache of its K/V."""
-    q, k, v = _project_qkv(p, spec, x, positions, freqs)
-    o = flash_scan(q, k, v, causal=spec.causal, window=spec.window,
-                   q_positions=positions, k_positions=positions)
+    q, k, v, kv = _project_qkv(p, spec, x, positions, freqs)
+    o = flash_scan(q, k[:, kv], v[:, kv], causal=spec.causal,
+                   window=spec.window, q_positions=positions,
+                   k_positions=positions)
     cache = prefill_to_cache(spec, k, v, x.shape[1], context)
-    return _merge_heads(o) @ p.wo.to(x.dtype), cache
+    return _out_proj(p, spec, o, x.dtype), cache
 
 
 def attention_decode(p: Attention, spec: AttnSpec, x: torch.Tensor,
@@ -265,29 +315,30 @@ def attention_decode(p: Attention, spec: AttnSpec, x: torch.Tensor,
     Returns the output and a new cache (the input cache is not written)."""
     w = cache.k.shape[2]
     if pos.dim():                   # per-row positions [B]
-        q, k, v = _project_qkv(p, spec, x, pos[:, None], freqs)
+        q, k, v, kv = _project_qkv(p, spec, x, pos[:, None], freqs)
         hit = (torch.arange(w, dtype=torch.int32, device=x.device)[None, :]
                == (pos % w)[:, None])                       # [B, W]
         k_new = torch.where(hit[:, None, :, None], k[:, :, :1], cache.k)
         v_new = torch.where(hit[:, None, :, None], v[:, :, :1], cache.v)
         pos_q = pos[:, None]                                # [B, 1]
     else:
-        q, k, v = _project_qkv(p, spec, x, pos[None], freqs)
+        q, k, v, kv = _project_qkv(p, spec, x, pos[None], freqs)
         slot = (pos % w).reshape(1).long()
         k_new = cache.k.index_copy(2, slot, k)
         v_new = cache.v.index_copy(2, slot, v)
         pos_q = pos
     scale = spec.head_dim ** -0.5
-    s = torch.einsum("bhgqd,bhkd->bhgqk", q.float() * scale, k_new.float())
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q.float() * scale,
+                     k_new[:, kv].float())
     mask = (slot_positions >= 0) & (slot_positions <= pos_q)
     if spec.window is not None:
         mask = mask & (slot_positions > pos_q - spec.window)
     mask = mask[:, None, None, None, :] if mask.dim() == 2 else mask
     s = torch.where(mask, s, torch.full((), -1e30, device=x.device))
     prob = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", prob, v_new.float())
-    o = _merge_heads(o.to(x.dtype))
-    return o @ p.wo.to(x.dtype), KVCache(k=k_new, v=v_new)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", prob, v_new[:, kv].float())
+    return _out_proj(p, spec, o.to(x.dtype), x.dtype), \
+        KVCache(k=k_new, v=v_new)
 
 
 def cross_attention(p: Attention, spec: AttnSpec, x: torch.Tensor,

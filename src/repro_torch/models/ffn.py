@@ -7,6 +7,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch.dist.act_sharding import gather_model
 from repro_torch.models import layers
 
 
@@ -51,7 +52,10 @@ def init_ffn(generator: torch.Generator, spec: FFNSpec, *,
 
 
 def apply_ffn(p: FFN, spec: FFNSpec, x: torch.Tensor) -> torch.Tensor:
-    """``x [..., d]`` through the block, in x's type."""
+    """``x [..., d]`` through the block, in x's type.  On a
+    tensor-parallel view ``w_up`` and ``w_gate`` give this rank's hidden
+    units, activated where they are and gathered over ``model`` before
+    ``w_down``, whose column shard gives this rank's ``d`` columns."""
     dt = x.dtype
     act = layers.activation(spec.act)
     up = x @ p.w_up.to(dt)
@@ -59,4 +63,4 @@ def apply_ffn(p: FFN, spec: FFNSpec, x: torch.Tensor) -> torch.Tensor:
         h = act(x @ p.w_gate.to(dt)) * up
     else:
         h = act(up)
-    return h @ p.w_down.to(dt)
+    return gather_model(h, spec.d_ff, "ffn") @ p.w_down.to(dt)

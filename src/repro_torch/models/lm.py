@@ -19,6 +19,16 @@ gradient reaches the f32 masters.
 
 Parameters are created frozen (``requires_grad=False``), so serving
 records no graph; :func:`trainable` turns them on for training.
+
+On a mesh the model runs on each rank's local tensors through one of two
+views: :func:`tp_view` (the :data:`TP_FAMILIES`: each weight read as its
+shard, the residual stream sharded on ``embed``, activations gathered
+over ``model`` where a whole row is needed, the head and the loss split
+over the vocabulary) or :func:`local_view` (the other families: each
+weight gathered whole, every rank of ``model`` computing each layer
+whole).  The code below is the same for both and for one device: it
+reads each tensor's width against the whole one
+(``act_sharding.gather_model``).
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ from repro_torch.models.attention import AttnSpec, KVCache
 from repro_torch.models.config import ArchConfig
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+# the families whose blocks compute on their weight shards on a mesh
+TP_FAMILIES = ("dense", "vlm")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -354,15 +366,26 @@ def _ssm_branch(cfg: ArchConfig, blk: Block, h: torch.Tensor,
     return ssm.apply_ssm(blk.ssm, sspec, h, state)
 
 
+def _row_norm(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor
+              ) -> torch.Tensor:
+    """The block norm of the residual ``x`` as whole rows.  On a
+    tensor-parallel view ``x`` and the norm's weight hold this rank's
+    ``embed`` columns: both are gathered (the weight is ``d`` entries), so
+    the row's statistics are the unsharded step's."""
+    d = cfg.d_model
+    return _norm(cfg, act_sharding.gather_model(x, d, "rows"),
+                 act_sharding.gather_model(w, d, "norm"))
+
+
 def _block_train(cfg: ArchConfig, blk: Block, x: torch.Tensor,
                  positions: range, freqs: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    h = _norm(cfg, x, blk.ln1)
+    h = _row_norm(cfg, x, blk.ln1)
     attn_out = attention.attention_train(blk.attn, attn_spec(cfg), h,
                                          positions, freqs)
     ssm_out, _ = _ssm_branch(cfg, blk, h, None)
     x = x + _mix_out(attn_out, ssm_out)
-    out, aux = _ffn_out(cfg, blk, _norm(cfg, x, blk.ln2))
+    out, aux = _ffn_out(cfg, blk, _row_norm(cfg, x, blk.ln2))
     return x + out, aux
 
 
@@ -370,12 +393,12 @@ def _block_prefill(cfg: ArchConfig, blk: Block, x: torch.Tensor,
                    positions: range, freqs: torch.Tensor, context: int
                    ) -> Tuple[torch.Tensor, KVCache,
                               Optional[ssm.SSMState]]:
-    h = _norm(cfg, x, blk.ln1)
+    h = _row_norm(cfg, x, blk.ln1)
     attn_out, kv = attention.attention_prefill(blk.attn, attn_spec(cfg), h,
                                                positions, freqs, context)
     ssm_out, ssm_state = _ssm_branch(cfg, blk, h, None)
     x = x + _mix_out(attn_out, ssm_out)
-    out, _ = _ffn_out(cfg, blk, _norm(cfg, x, blk.ln2))
+    out, _ = _ffn_out(cfg, blk, _row_norm(cfg, x, blk.ln2))
     return x + out, kv, ssm_state
 
 
@@ -384,44 +407,66 @@ def _block_decode(cfg: ArchConfig, blk: Block, x: torch.Tensor,
                   slot_pos: torch.Tensor,
                   ssm_state: Optional[ssm.SSMState]
                   ) -> Tuple[torch.Tensor, KVCache, Optional[ssm.SSMState]]:
-    h = _norm(cfg, x, blk.ln1)
+    h = _row_norm(cfg, x, blk.ln1)
     attn_out, kv_new = attention.attention_decode(
         blk.attn, attn_spec(cfg), h, pos, freqs, kv, slot_pos)
     ssm_out, ssm_new = _ssm_branch(cfg, blk, h, ssm_state)
     x = x + _mix_out(attn_out, ssm_out)
-    out, _ = _ffn_out(cfg, blk, _norm(cfg, x, blk.ln2))
+    out, _ = _ffn_out(cfg, blk, _row_norm(cfg, x, blk.ln2))
     return x + out, kv_new, ssm_new
 
 
 def _embed(model: LM, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    # on a tensor-parallel view the table holds this rank's embed columns,
+    # and so does the lookup: the residual stream starts sharded
     scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
     return layers.embed_lookup(model.embed, tokens, dtype=compute_dtype(cfg),
                                scale=scale)
 
 
 def final_hidden(model: LM, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """The final norm of hidden states ``x``."""
-    return layers.rms_norm(x, model.final_norm, plus_one=cfg.norm_plus_one)
+    """The final norm of hidden states ``x`` (gathered whole over
+    ``model`` on a tensor-parallel view)."""
+    return layers.rms_norm(
+        act_sharding.gather_model(x, cfg.d_model, "rows"), model.final_norm,
+        plus_one=cfg.norm_plus_one)
 
 
 def head_matrix(model: LM, cfg: ArchConfig) -> torch.Tensor:
     """The f32 output projection ``[D, padded_vocab]``: the transposed
-    embeddings when they are tied, else ``lm_head``."""
-    return model.embed.T if cfg.tie_embeddings else model.lm_head
+    embeddings when they are tied, else ``lm_head``.  On a
+    :func:`tp_view`, this rank's vocabulary columns ``[D, Vp / model]``:
+    ``lm_head`` as it is placed (``Shard(1)``), the tied table's rows
+    redistributed from its ``Shard(1)`` placement (one all-to-all, in the
+    compute type), a replicated one's sliced."""
+    if not isinstance(model, _TPView):
+        return model.embed.T if cfg.tie_embeddings else model.lm_head
+    if cfg.tie_embeddings:      # cast first: the all-to-all moves half
+        table = model.embed.to(compute_dtype(cfg))
+        return act_sharding.rows_from_columns(table, cfg.d_model).T
+    head = model.lm_head
+    if head.shape[1] == cfg.padded_vocab:
+        head = act_sharding.model_slice(head, 1)
+    return head
 
 
 def logits_at(model: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """h ``[..., D]`` -> ``[..., padded_vocab]`` f32 logits, the padded
-    entries at -1e30."""
+    entries at -1e30 (on a :func:`tp_view`, this rank's vocabulary
+    columns: the reference's ``(dp, model)`` out spec)."""
     head = head_matrix(model, cfg).to(compute_dtype(cfg))
     return mask_padded_vocab(cfg, (h @ head).float())
 
 
 def mask_padded_vocab(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
-    """``logits`` with the entries past the vocabulary at -1e30."""
+    """``logits`` (the whole vocabulary, or this rank's columns of it)
+    with the entries past the vocabulary at -1e30."""
     if cfg.padded_vocab != cfg.vocab:
-        mask = torch.zeros(cfg.padded_vocab, device=logits.device)
-        mask[cfg.vocab:] = -1e30
+        start = act_sharding.vocab_start(cfg.padded_vocab,
+                                         logits.shape[-1]) or 0
+        cols = torch.arange(start, start + logits.shape[-1],
+                            device=logits.device)
+        mask = torch.where(cols >= cfg.vocab, -1e30, 0.0)
         logits = logits + mask
     return logits
 
@@ -446,6 +491,7 @@ class _CastView:
     module list as a list of views; anything else as it is."""
 
     __slots__ = ("_module", "_dtype")
+    _read = staticmethod(act_sharding.gathered)
 
     def __init__(self, module: nn.Module, dtype: Optional[torch.dtype]):
         self._module, self._dtype = module, dtype
@@ -453,23 +499,32 @@ class _CastView:
     def __getattr__(self, name: str):
         v = getattr(self._module, name)
         if isinstance(v, nn.ModuleList):
-            return [_CastView(m, self._dtype) for m in v]
+            return [type(self)(m, self._dtype) for m in v]
         if isinstance(v, nn.Module):
-            return _CastView(v, self._dtype)
+            return type(self)(v, self._dtype)
         if isinstance(v, torch.Tensor):
-            v = act_sharding.gathered(v)
+            v = self._read(v)
             if self._dtype is not None and v.is_floating_point():
                 return v.to(self._dtype)
         return v
+
+
+class _TPView(_CastView):
+    """A :class:`_CastView` whose tensors read as this rank's shards
+    (``act_sharding.tp_local``), not whole."""
+
+    __slots__ = ()
+    _read = staticmethod(act_sharding.tp_local)
 
 
 def cast_view(module: nn.Module, dtype: torch.dtype):
     """``module`` with every floating parameter read in ``dtype`` on each
     use, inside the autograd graph: the reference's ``_cast_blocks``
     without a copy that would cut the gradient from the f32 masters.  A
-    view of a view casts the module underneath."""
+    view of a view casts the module underneath, read as that view reads
+    it (whole or by shards)."""
     if isinstance(module, _CastView):
-        module = module._module
+        return type(module)(module._module, dtype)
     return _CastView(module, dtype)
 
 
@@ -478,8 +533,29 @@ def local_view(model: nn.Module):
     parameter read whole at its use, in its own type: a model whose
     parameters are sharded ``DTensor``s runs as one that holds them all,
     one weight gathered at a time (a layer's gathered weights are freed
-    when the layer ends, and recomputed with it under remat)."""
+    when the layer ends, and recomputed with it under remat), every rank
+    of ``model`` computing each layer whole.  The meshed steps' design for
+    the families outside :data:`TP_FAMILIES`."""
     return _CastView(model, None)
+
+
+def tp_view(model: LM):
+    """``model`` (an :class:`LM` of a :data:`TP_FAMILIES` family) with
+    every parameter read as this rank's shard, in its own type: run under
+    ``act_sharding.activation_rules(mesh)``, each block computes on its
+    weight shards over ``model`` (the reference's placements: column
+    shards of every weight 512 or more wide), its residual stream sharded
+    on ``embed``, its q heads local where they split evenly
+    (``attention.local_heads``), k and v whole, and the head and the loss
+    on this rank's vocabulary columns.  No weight matrix is gathered (the
+    block norms' ``d``-entry weights are, with the rows they scale)."""
+    return _TPView(model, None)
+
+
+def mesh_view(model: nn.Module, cfg: ArchConfig):
+    """The view a meshed step runs ``model`` on: :func:`tp_view` for the
+    :data:`TP_FAMILIES`, :func:`local_view` for the others."""
+    return tp_view(model) if cfg.family in TP_FAMILIES else local_view(model)
 
 
 def _remat(cfg: ArchConfig, layers_: List[Callable], x: torch.Tensor

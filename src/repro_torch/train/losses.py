@@ -8,14 +8,22 @@ gemma-2b's 4 x 512 x 256,000).  Each chunk runs under
 ``torch.utils.checkpoint``, the counterpart of the reference's
 ``nothing_saveable`` policy: autograd keeps no chunk's logits, and the
 backward recomputes one chunk at a time.
+
+On a tensor-parallel view the head holds this rank's vocabulary columns
+(``vocab_start``): each chunk's logits are this rank's, and its maximum,
+sum of exponentials and label logit are reduced over ``model``
+(``act_sharding.max_model`` / ``sum_model``), the reference's
+vocabulary-sharded logits without a gather.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.dist import act_sharding
 
 IGNORE = -1  # label value that is masked out
 
@@ -36,9 +44,33 @@ def _chunk_nll(h: torch.Tensor, head: torch.Tensor, lab: torch.Tensor,
     return ((lse - gold[..., 0]) * mask).sum(), mask.sum()
 
 
+def _chunk_nll_sharded(h: torch.Tensor, head: torch.Tensor,
+                       lab: torch.Tensor, vocab: int, start: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_chunk_nll` with ``head`` this rank's columns ``[D, Vr]``
+    from ``start``: the log-sum-exp and the label's logit summed over
+    ``model`` (the shift, the maximum over ``model``, taken outside the
+    graph), so every rank holds the chunk's NLL and its gradient reaches
+    this rank's logits."""
+    logits = (h @ head).float()                               # [B, C, Vr]
+    cols = torch.arange(start, start + head.shape[-1], device=h.device)
+    logits = torch.where(cols >= vocab, torch.full((), -1e30,
+                                                   device=h.device), logits)
+    shift = act_sharding.max_model(logits.amax(-1))           # [B, C]
+    sumexp = torch.exp(logits - shift[..., None]).sum(-1)
+    lse = shift + torch.log(act_sharding.sum_model(sumexp))
+    idx = lab.clamp(0, vocab - 1).long() - start
+    mine = (idx >= 0) & (idx < head.shape[-1])
+    gold = logits.gather(-1, idx.clamp(0, head.shape[-1] - 1)[..., None])
+    gold = act_sharding.sum_model(torch.where(mine, gold[..., 0], 0.0))
+    mask = (lab != IGNORE).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
 def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor, *, vocab: int,
-                          chunk: int = 512
+                          chunk: int = 512,
+                          vocab_start: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hidden ``[B, S, D]``; head ``[D, Vp]``; labels ``[B, S]`` int.
 
@@ -46,6 +78,9 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     count), both f32 scalars.  S is padded to a multiple of the chunk with
     ignored labels; the padded vocab columns are masked to -1e30; an
     ignored label's gold index is clipped into range and its NLL masked.
+    With ``vocab_start`` the head is this rank's columns of the padded
+    vocabulary from that column, under a mesh's rules: the form reduced
+    over ``model`` (every rank of ``model`` returns the same loss).
     """
     b, s, _ = hidden.shape
     chunk = min(chunk, s)
@@ -57,10 +92,13 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     grad = torch.is_grad_enabled()
     total = torch.zeros((), device=hidden.device)
     count = torch.zeros((), device=hidden.device)
+    fn, extra = (_chunk_nll, ()) if vocab_start is None else \
+        (_chunk_nll_sharded, (vocab_start,))
     for i in range(0, hidden.shape[1], chunk):
-        args = (hidden[:, i:i + chunk], head_c, labels[:, i:i + chunk], vocab)
-        nll, n = checkpoint(_chunk_nll, *args, use_reentrant=False) \
-            if grad else _chunk_nll(*args)
+        args = (hidden[:, i:i + chunk], head_c, labels[:, i:i + chunk], vocab,
+                *extra)
+        nll, n = checkpoint(fn, *args, use_reentrant=False) \
+            if grad else fn(*args)
         total = total + nll
         count = count + n
     return total / torch.clamp(count, min=1.0), count

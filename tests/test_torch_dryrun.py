@@ -9,6 +9,12 @@ imports no JAX; this test holds its records against the reference:
   tree and ``abstract_params`` shapes (a sharded dim holds
   ``ceil(n / size)`` entries on rank 0);
 * a train cell with ``model > 1`` has collectives; a (1, 1) mesh none.
+
+The same subprocess runs full-size gemma-2b ``train_4k`` at ``(2, 4)``
+(the tensor-parallel design: each rank's flops fall by the factor the
+shapes give) and at ``(2, 1)`` (one rank of ``model``: every layer whole,
+the gather design's flops a rank), and mixtral-8x22b's smoke cell at
+``(2, 4)`` (MoE stays on the gather design).
 """
 import json
 import math
@@ -46,11 +52,20 @@ for shape in ("train_4k", "decode_32k"):
     rec["mesh"] = "one"
     out.append(rec)
 print("RECORDS " + json.dumps(out))
+tp = {{}}
+for mesh in ("2,4", "2,1"):
+    os.environ["REPRO_MESH_SHAPE"] = mesh
+    tp[mesh] = dryrun.run_cell("gemma-2b", "train_4k", "single",
+                               verbose=False)
+os.environ["REPRO_MESH_SHAPE"] = "2,4"
+tp["moe"] = dryrun.run_cell("mixtral-8x22b", "train_4k", "single",
+                            verbose=False, smoke=True)
+print("TP_RECORDS " + json.dumps(tp))
 """
 
 
 @pytest.fixture(scope="module")
-def records():
+def output():
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("REPRO_") and k != "XLA_FLAGS"}
     env.update(PYTHONPATH=str(ROOT / "src"), REPRO_MESH_SHAPE="2,4",
@@ -58,10 +73,24 @@ def records():
                OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", SCRIPT.format(cells=CELLS)],
                          env=env, cwd=str(ROOT), capture_output=True,
-                         text=True, timeout=240)
+                         text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    line = [l for l in out.stdout.splitlines() if l.startswith("RECORDS ")]
-    return json.loads(line[-1][len("RECORDS "):])
+    return out.stdout.splitlines()
+
+
+def _line(output, tag):
+    line = [l for l in output if l.startswith(tag + " ")]
+    return json.loads(line[-1][len(tag) + 1:])
+
+
+@pytest.fixture(scope="module")
+def records(output):
+    return _line(output, "RECORDS")
+
+
+@pytest.fixture(scope="module")
+def tp_records(output):
+    return _line(output, "TP_RECORDS")
 
 
 def _ref_param_bytes(arch, shape_name, sizes):
@@ -147,3 +176,38 @@ def test_meta_attention_blocks_equal_the_plain_version(causal, window,
     out = fa.flash_attention(*(t.to("meta") for t in (q, k, v)), **kw)
     assert out.device.type == "meta" and out.shape == q.shape \
         and out.dtype == q.dtype
+
+
+def test_dense_cell_computes_on_its_shards(tp_records):
+    """gemma-2b ``train_4k`` at ``(2, 4)`` takes the tensor-parallel
+    design, its 8 heads 2 a rank.  Every product of a layer and the head
+    splits over the 4 ranks of ``model`` but ``wk`` and ``wv`` (256 wide,
+    replicated by the rules), so against the ``(2, 1)`` cell, every rank
+    computing each layer whole on the same rows, the flops a rank fall by
+    ``whole / (whole / 4 + 3/4 kv)``, with ``kv`` the k and v products'
+    flops: 8 a multiply-add (the forward, remat's recompute, dx and dw) of
+    128 rows x 4,096 tokens x 2,048 x 256, twice a layer, 18 layers (a
+    factor of 3.96)."""
+    tp, whole = tp_records["2,4"], tp_records["2,1"]
+    assert tp["status"] == whole["status"] == "ok"
+    assert tp["design"] == "tp" and whole["design"] == "tp"
+    assert tp["mesh_shape"] == [2, 4] and whole["mesh_shape"] == [2, 1]
+    f_tp = tp["cost_analysis"]["flops"]
+    f_whole = whole["cost_analysis"]["flops"]
+    kv = 8 * (256 // 2) * 4096 * 2048 * 256 * 2 * 18
+    factor = f_whole / (f_whole / 4 + 0.75 * kv)
+    assert 3.9 < factor < 4.0
+    assert abs(f_whole / f_tp - factor) <= 0.1 * factor, (f_whole / f_tp,
+                                                          factor)
+    # the FFN's hidden units are gathered before w_down; no weight is
+    assert tp["tp_collectives"]["ffn all-gather"] > 0
+    assert tp["tp_collectives"]["head all-to-all"] > 0
+    assert whole["tp_collectives"] == {}
+    assert tp["memory_analysis"]["peak_bytes_per_rank"] < \
+        whole["memory_analysis"]["peak_bytes_per_rank"]
+
+
+def test_moe_cell_stays_on_the_gather_design(tp_records):
+    rec = tp_records["moe"]
+    assert rec["status"] == "ok" and rec["design"] == "gather"
+    assert rec["tp_collectives"] == {}

@@ -7,9 +7,11 @@ saves what it returns as ``tmp_path/rank<r>.pt``.  A rank that fails or
 outlives ``timeout`` fails the spawn (every rank is killed).  Nothing here
 imports JAX: the reference's numbers are computed by the test itself.
 """
+import contextlib
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -20,26 +22,44 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def spawn(job: str, world: int, tmp_path, timeout: float = 120.0, args=()):
     """Run ``job`` on ``world`` ranks; returns each rank's result."""
+    return collect(start(job, world, tmp_path, args), timeout)
+
+
+def start(job: str, world: int, tmp_path, args=()):
+    """Start ``job`` on ``world`` ranks (the caller works meanwhile);
+    :func:`collect` waits for them."""
     tmp = Path(tmp_path)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                MKL_NUM_THREADS="1")
     for k in [k for k in env if k.startswith("REPRO_")]:
         del env[k]
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, job, str(r), str(world), str(tmp),
-         *map(str, args)], env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    outs = []
+    procs = []
+    for r in range(world):      # output to a file: no pipe to fill meanwhile
+        with open(tmp / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, job, str(r), str(world), str(tmp),
+                 *map(str, args)], env=env, cwd=str(ROOT), stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs, tmp
+
+
+def collect(started, timeout: float = 120.0):
+    """Each rank's result of a :func:`start`; a rank that fails or
+    outlives ``timeout`` (counted from this call) fails it, every rank
+    killed."""
+    procs, tmp = started
+    world = len(procs)
+    end = time.monotonic() + timeout
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+            p.wait(timeout=max(end - time.monotonic(), 0.0))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    bad = [(r, p.returncode, o[-3000:]) for r, (p, o)
-           in enumerate(zip(procs, outs)) if p.returncode != 0]
+    bad = [(r, p.returncode, (tmp / f"rank{r}.log").read_text()[-3000:])
+           for r, p in enumerate(procs) if p.returncode != 0]
     assert not bad, bad
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
@@ -237,6 +257,179 @@ def job_mesh_train(rank, world, tmp):
     return out
 
 
+# The tensor-parallel check's configs (f32, ``WIDE`` widths): attention
+# wide enough that the rules split it.  "gemma": MQA, wq 512 wide (32 heads
+# of 16), tied head, local heads on 2 and 4 ranks; "qwen": qkv biases, wk
+# and wv 512 wide (sharded, gathered whole), untied head; "chameleon" (the
+# vlm family, qk-norm): 33 heads, so no mesh splits them (q whole).
+TP_CONFIGS = {
+    "gemma": ("gemma-2b", dict(n_heads=32, n_kv_heads=1)),
+    "qwen": ("qwen2-72b", dict(n_heads=64, n_kv_heads=32)),
+    "chameleon": ("chameleon-34b", dict(n_heads=33, n_kv_heads=3)),
+}
+TP_MESHES = ((1, 2), (2, 2), (1, 4))
+TP_SERVE_MESHES = ((1, 2), (1, 4))
+TP_PROMPT, TP_CONTEXT, TP_DECODE = 12, 24, 4
+
+
+def tp_config(name: str):
+    """The port's config of ``TP_CONFIGS[name]``."""
+    import dataclasses
+    from repro_torch.configs import lm_archs
+    arch, extra = TP_CONFIGS[name]
+    return dataclasses.replace(lm_archs.smoke(arch), **WIDE, **extra)
+
+
+def tp_prompts(cfg):
+    """(prompt [MESH_BATCH, TP_PROMPT], decode tokens [TP_DECODE,
+    MESH_BATCH, 1]) of the serving check (numpy seeded)."""
+    rng = np.random.default_rng(9)
+    return (torch.from_numpy(rng.integers(0, cfg.vocab,
+                                          (MESH_BATCH, TP_PROMPT))),
+            torch.from_numpy(rng.integers(0, cfg.vocab,
+                                          (TP_DECODE, MESH_BATCH, 1))))
+
+
+def _tp_serve(cfg, model, mesh):
+    """Prefill (last-token logits and cache) and ``TP_DECODE`` decode
+    steps' logits through ``build_cell``'s serving steps on ``mesh``
+    (``model`` unmeshed when ``mesh`` is None), whole tensors."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    prompt, toks = tp_prompts(cfg)
+    if mesh is None:
+        logits, cache = lm.prefill(model, cfg, prompt, TP_CONTEXT)
+        out = {"prefill": logits, "cache": dict(cache), "decode": []}
+        for t in toks:
+            logits, cache = lm.decode_step(model, cfg, cache, t)
+            out["decode"].append(logits)
+        return out
+    dp = shd.dp_axes(mesh)
+    pre, _ = steps.build_cell(cfg, steps.ShapeSpec(
+        "tp_prefill", TP_CONTEXT, MESH_BATCH, "prefill"), mesh)
+    dec, _ = steps.build_cell(cfg, steps.ShapeSpec(
+        "tp_decode", TP_CONTEXT, MESH_BATCH, "decode"), mesh)
+    logits, cache = pre(model, shd.distribute(prompt, mesh,
+                                              shd.Spec(dp, None)))
+    out = {"prefill": shd.full(logits),
+           "cache": {k: shd.full(v) for k, v in cache.items()},
+           "decode": [], "logits_placements": str(logits.placements)}
+    for t in toks:
+        logits, cache = dec(model, cache, shd.distribute(
+            t, mesh, shd.Spec(dp, None)))
+        out["decode"].append(shd.full(logits))
+    return out
+
+
+class _GatherLog:
+    """A dispatch mode that keeps the output shape of every all-gather."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        log = self.shapes = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if "all_gather" in str(func):
+                    log.append(tuple(out.shape))
+                return out
+        self.mode = Mode()
+
+
+def _tp_block(cfg, model, mesh):
+    """Block 0's training forward and backward on this rank (``mesh``
+    None: the whole model): (flops, the all-gathers' output shapes), on
+    the tensor-parallel view, and on the gather view for contrast."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.dist import act_sharding
+    from repro_torch.models import lm
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(MESH_BATCH, MESH_SEQ, cfg.d_model)).astype(np.float32))
+    freqs = lm._freqs(cfg, "cpu")
+    out = {}
+    views = [("whole", lambda m: m)] if mesh is None else \
+        [("tp", lm.tp_view), ("gather", lm.local_view)]
+    for name, view in views:
+        blk = lm.cast_view(view(lm.trainable(model)).blocks[0],
+                           torch.float32)
+        log = _GatherLog()
+        flops = FlopCounterMode(display=False)
+        rules = act_sharding.activation_rules(mesh) if mesh is not None \
+            else contextlib.nullcontext()
+        with rules:     # the tensor-parallel residual: this rank's columns
+            xs = act_sharding.model_slice(x, -1) if name == "tp" else x
+            xs = xs.clone().requires_grad_(True)
+            with flops, log.mode, torch.enable_grad():
+                y, _ = lm._block_train(cfg, blk, xs, range(MESH_SEQ), freqs)
+                y.sum().backward()
+        out[name] = {"flops": flops.get_total_flops(),
+                     "gathers": log.shapes}
+    return out
+
+
+def job_tensor_parallel(rank, world, tmp):
+    import torch.distributed as dist
+    from repro_torch.launch import steps
+    out = {}
+    for name in TP_CONFIGS:
+        cfg = tp_config(name)
+        batches = train_batches(cfg, MESH_STEPS, MESH_BATCH, MESH_SEQ)
+        for shape in TP_MESHES:
+            mesh = _submesh(world, shape)
+            out[(name, shape)] = _mesh_run(cfg, mesh, batches)
+
+            out[(name, shape, "design")] = steps.design(cfg, mesh)
+        model = steps.init_fn(cfg)(torch.Generator().manual_seed(0), "cpu")
+        if rank == 0:
+            out[(name, None)] = _mesh_run(cfg, None, batches)
+            out[(name, None, "serve")] = _tp_serve(cfg, model, None)
+            out[(name, None, "block")] = _tp_block(cfg, model, None)
+        from repro_torch.dist import sharding as shd
+        for shape in TP_SERVE_MESHES:
+            mesh = _submesh(world, shape)
+            model = steps.init_fn(cfg)(torch.Generator().manual_seed(0),
+                                       "cpu")
+            model = shd.distribute_params(model, mesh)
+            out[(name, shape, "serve")] = _tp_serve(cfg, model, mesh)
+            if shape == (1, 4):
+                out[(name, shape, "block")] = _tp_block(cfg, model, mesh)
+    out["eager_gather"] = _eager_gather_check(world)
+    dist.barrier()
+    return out
+
+
+def _eager_gather_check(world):
+    """(the eager all-gather's result and gradient equal the functional
+    one's, 6 tied-table rows over 4 ranks of ``model`` raise)."""
+    from repro_torch.dist import act_sharding
+    mesh = _submesh(world, (1, 4))
+    x = torch.randn(3, 2, 517, generator=torch.Generator().manual_seed(4))
+    got = []
+    orig = act_sharding._eager_gather
+    try:
+        for eager in (False, True):
+            act_sharding._eager_gather = lambda group, t, e=eager: e
+            with act_sharding.activation_rules(mesh):
+                xs = act_sharding.model_slice(x, -1).requires_grad_(True)
+                y = act_sharding.gather_model(xs, 517, "x")
+                (y * torch.arange(517.0)).sum().backward()
+            got.append((y.detach(), xs.grad))
+    finally:
+        act_sharding._eager_gather = orig
+    same = torch.equal(got[0][0], got[1][0]) and torch.equal(
+        got[0][1], got[1][1]) and torch.equal(got[0][0], x)
+    try:
+        with act_sharding.activation_rules(mesh):
+            act_sharding.rows_from_columns(torch.zeros(6, 130), 520)
+        raised = False
+    except ValueError:
+        raised = True
+    return same, raised
+
+
 def main():
     job, rank, world, tmp = sys.argv[1], int(sys.argv[2]), \
         int(sys.argv[3]), sys.argv[4]
@@ -247,6 +440,7 @@ def main():
     try:
         res = globals()["job_" + job](rank, world, tmp)
         torch.save(res, Path(tmp) / f"rank{rank}.pt")
+
     finally:
         dist.destroy_process_group()
 
