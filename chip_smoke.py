@@ -3793,6 +3793,10 @@ def train_ckpt_replay(dev, seed: int, tmp: Path) -> dict:
         def step_fn(p, o, batch):
             if batch["step"] in pending:
                 pending.discard(batch["step"])
+                # the failure lands after the writes in flight: the replay
+                # resumes from the newest step and saves only later ones
+                # (a re-save onto a written step fails in wait_pending)
+                checkpoint.wait_pending()
                 raise RuntimeError("injected failure")
             return step(p, o, batch)
 
@@ -4311,6 +4315,7 @@ def tp_rank(rank: int, dev, seed: int, smi: str) -> dict:
     del model, logits
     gc.collect()
     torch.cuda.empty_cache()
+    out["families"] = tp_families_rank(rank, dev, mesh, seed, smi)
     return out
 
 
@@ -4334,41 +4339,589 @@ def tp_rank_main(rank: int, tp_dir: Path, seed: int) -> None:
         dist.destroy_process_group()
 
 
-def bf16_order_floor(dev, seed: int, phase12: dict) -> dict:
-    """Phase 12's first ``MESH_STEPS`` unmeshed gemma-2b steps (seed, lr,
-    batches) with each batch's gradient summed over ``TP_FLOOR_SLICES``
-    slices of its rows: the same sums in another order, so their losses
-    and grad norms against phase 12's are bf16's floor for any reordering
-    (the tensor-parallel step's among them)."""
+# The other families tensor-parallel on the same two ranks (slice 16), at
+# full width; depth cut only for the MoE models, as phase 11 cuts them
+TP_MOE_ARCHS = (("mixtral-8x22b", MIXTRAL_LAYERS), ("dbrx-132b", DBRX_LAYERS))
+TP_MOE_PROMPT = 600          # tokens of each MoE prefill (phase 11's longest)
+TP_DECODE_TICKS = 4          # decode ticks after each LM prefill
+TP_HYMBA_TRAIN = (4, 512)    # rows, tokens of hymba's two training steps
+TP_HYMBA_PREFILL = 1100      # past hymba's 1,024 window: the ring rolls
+TP_RWKV_PREFILL = 700
+# hymba's and rwkv6-7b's bf16 logits and states lie further from an f32
+# run of the same weights than DECODE_VS_PREFILL_REL and the 1e-3 of RWKV's
+# states (ROADMAP C.6; PERF.md §6), so a bf16 TP run cannot be held to
+# them.  Both models are also run in f32 on the same bf16 values, unmeshed
+# and on the TP mesh, and that pair is held at TP_F32_TOL of the largest
+# entry (the logits, with the argmax, and every recurrent state): f32
+# leaves only the reordering's rounding between them (hymba's attention
+# in TF32 on both sides).  The bf16 TP run is held no farther
+# from the f32 run than this factor times the unmeshed bf16 run's largest
+# distance from it (logits, over the prefill and the ticks)
+TP_BF16_VS_F32_FACTOR = 1.25
+TP_F32_TOL = 1e-3
+TP_WHISPER_TICKS = 8
+TP_FAMILY_DESIGN = {"mixtral-8x22b": "tp", "dbrx-132b": "tp",
+                    "hymba-1.5b": "tp (q whole)", "rwkv6-7b": "tp",
+                    "whisper-small": "tp"}
+
+
+class DispatchLog:
+    """Inside the context, every MoE routing's router logits, dispatch
+    table and token slots (``moe._group_dispatch``'s input and first and
+    third outputs), copied to the host."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.orig, self.log = moe._group_dispatch, []
+
+        def logged(spec, cap, logits):
+            out = self.orig(spec, cap, logits)
+            self.log.append((logits.detach().float().cpu(), out[0].cpu(),
+                             out[2].cpu()))
+            return out
+        moe._group_dispatch = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._group_dispatch = self.orig
+
+
+def _fresh_memory() -> None:
     import gc
     import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _tp_serve(cfg, model, mesh, prompt, ticks, audio=None) -> dict:
+    """``prompt`` prefilled and ``ticks [n, B, 1]`` decoded by ``model``:
+    unmeshed when ``mesh`` is None, else through ``build_cell``'s serving
+    steps on ``mesh`` (logits gathered whole through the host).  Returns
+    every step's logits and the recurrent states of the last cache on the
+    host, and the prefill's and the decode ticks' ms."""
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, whisper
+    ctx = WHISPER_CONTEXT if cfg.is_enc_dec else FAMILY_CONTEXT
+    mod = whisper if cfg.is_enc_dec else lm
+    if mesh is None:
+        def pre(t):
+            if cfg.is_enc_dec:
+                return whisper.prefill(model, cfg, audio, t, ctx)
+            return lm.prefill(model, cfg, t, ctx)
+
+        def dec(c, t):
+            return mod.decode_step(model, cfg, c, t)
+
+        def whole(t):
+            return t.float().cpu()
+    else:
+        dp = shd.dp_axes(mesh)
+        b = prompt.shape[0]
+        pre_fn, _ = steps.build_cell(cfg, steps.ShapeSpec(
+            "phase13 tp prefill", ctx, b, "prefill"), mesh)
+        dec_fn, _ = steps.build_cell(cfg, steps.ShapeSpec(
+            "phase13 tp decode", ctx, b, "decode"), mesh)
+        extra = () if audio is None else (
+            shd.distribute(audio, mesh, shd.Spec(dp, None, None)),)
+
+        def pre(t):
+            return pre_fn(model, shd.distribute(t, mesh, shd.Spec(dp, None)),
+                          *extra)
+
+        def dec(c, t):
+            return dec_fn(model, c, shd.distribute(t, mesh,
+                                                   shd.Spec(dp, None)))
+
+        def whole(t):
+            return _tp_gather_cols(shd.local(t).float())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre(prompt)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [whole(logits)]
+    for t in ticks:
+        logits, cache = dec(cache, t)
+        out.append(whole(logits))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    states = {k: shd.local(v).float().cpu() for k, v in cache.items()
+              if k.startswith(("rwkv_", "ssm_"))}
+    return {"logits": out, "states": states, "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_tick": (t2 - t1) * 1e3 / max(len(ticks), 1)}
+
+
+def _cast_params(model, dtypes) -> dict:
+    """Every parameter of ``model`` (whole or a ``DTensor``) cast in place
+    to ``dtypes`` (one dtype, or a dtype by name); returns the dtypes they
+    had."""
+    import torch
+    had = {}
+    for name, p in list(model.named_parameters()):
+        had[name] = p.dtype
+        dt = dtypes if isinstance(dtypes, torch.dtype) else dtypes[name]
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        mod._parameters[leaf] = torch.nn.Parameter(
+            p.data.to(dt), requires_grad=p.requires_grad)
+    return had
+
+
+def _tp_serve_family(arch: str, rank: int, dev, mesh, seed: int, *,
+                     layers=None, prompt_len: int, ticks: int,
+                     batch: int = 1, f32: bool = False) -> tuple:
+    """One family served on the TP mesh, at full width (depth ``layers``
+    where cut), bf16: rank 0 first runs the same weights unmeshed; then
+    both ranks the prefill and ``ticks`` decode ticks through
+    ``build_cell``, the launch counts set to 0 just before and K5
+    recorded.  With ``f32``, the same bf16 values are also run in f32,
+    unmeshed by rank 0 (``f32``) and on the TP mesh (``tp_f32``), after
+    the counted run.  Returns (this rank's report, K5 recorder)."""
+    import dataclasses
+    import numpy as np
+    import torch
     from repro_torch.configs import lm_archs
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, whisper
+
+    cfg = lm_archs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    _fresh_memory()
+    gen = torch.Generator(dev).manual_seed(seed)
+    if cfg.is_enc_dec:
+        model = whisper.compute_copy(whisper.init_params(cfg, gen, dev), cfg)
+        audio = torch.randn((batch, cfg.enc_context, cfg.d_model),
+                            generator=torch.Generator(dev).manual_seed(
+                                seed + 1), device=dev)
+    else:
+        model = lm.init_params(cfg, gen, dev, dtype=torch.bfloat16)
+        audio = None
+    rng = np.random.RandomState(seed + 3)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (
+        batch, prompt_len))).to(dev)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (
+        ticks, batch, 1))).to(dev)
+    out = {"arch": arch, "layers": cfg.n_layers, "prompt": prompt_len,
+           "batch": batch, "ticks": ticks, "design": steps.design(cfg, mesh)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if rank == 0:
+        with DispatchLog() as dlog:
+            out["unmeshed"] = _tp_serve(cfg, model, None, prompt, toks, audio)
+        out["unmeshed_dispatch"] = dlog.log
+        if f32:     # the same values in f32, and back (exact)
+            had = _cast_params(model, torch.float32)
+            out["f32"] = _tp_serve(cfg32, model, None, prompt, toks)
+            _cast_params(model, had)
+    model = shd.distribute_params(model, mesh)
+    _fresh_memory()
+    names = ("blocks.0.attn.wq", "blocks.0.moe.w_up", "blocks.0.moe.w_down",
+             "blocks.0.ssm.in_proj", "blocks.0.wr", "dec.0.self_attn.wq",
+             "dec.0.ffn.w_up")
+    out["local_shapes"] = {n: list(shd.local(p).shape) for n, p in
+                           model.named_parameters() if n in names}
+    build.reset_counters()
+    with K5Recorder() as rec, DispatchLog() as dlog:
+        out["tp"] = _tp_serve(cfg, model, mesh, prompt, toks, audio)
+    out["launches"] = build.launch_counts()
+    out["dispatch"] = dlog.log
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["k5_layouts"] = {_k5_label(k): n for k, n in rec.counts.items()}
+    if f32:
+        _cast_params(model, torch.float32)
+        _fresh_memory()
+        build.reset_counters()
+        with K5Recorder() as rec32:
+            out["tp_f32"] = _tp_serve(cfg32, model, mesh, prompt, toks)
+        out["launches_f32"] = build.launch_counts()
+        if rank == 0:       # hymba's attention: K5's TF32 kernel
+            out["k5_held_f32"] = hold_k5_record(rec32, f"{arch} f32 TP")
+        del rec32
+    del model
+    _fresh_memory()
+    return out, rec
+
+
+def _tp_train_hymba(rank: int, dev, mesh, seed: int) -> tuple:
+    """hymba-1.5b at full width and depth trained ``MESH_STEPS`` steps
+    through ``build_cell``'s train step on the TP mesh from ``seed``'s
+    weights at phase 12's lr, ``TP_HYMBA_TRAIN`` batches of
+    ``tokens.SyntheticCorpus(seed)``, the launch counts set to 0 just
+    before and K5 recorded.  Returns (report, K5 recorder)."""
+    import torch
+    from repro_torch.configs import lm_archs
+    from repro_torch.data import tokens
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.train import optim
+
+    cfg = lm_archs.get("hymba-1.5b")
+    rows, seq = TP_HYMBA_TRAIN
+    _fresh_memory()
+    params = shd.distribute_params(steps.init_fn(cfg)(
+        torch.Generator(dev).manual_seed(seed), dev), mesh)
+    opt = steps.opt_init(params)
+    fn, _ = steps.build_cell(cfg, steps.ShapeSpec(
+        "phase13 tp hymba", seq, rows, "train"), mesh,
+        opt_cfg=optim.AdamWConfig(lr=TRAIN_LR, weight_decay=0.1))
+    corpus = tokens.SyntheticCorpus(tokens.TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=rows, seed=seed))
+    losses_, norms, step_ms = [], [], []
+    build.reset_counters()
+    with K5Recorder() as rec:
+        for s in range(MESH_STEPS):
+            toks = corpus.sample_batch(s, rows)
+            batch = steps.shard_batch(steps.batch_on(
+                {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, dev), mesh)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = fn(params, opt, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses_.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    out = {"arch": cfg.name, "rows": rows, "seq": seq,
+           "design": steps.design(cfg, mesh), "losses": losses_,
+           "grad_norms": norms, "step_ms": step_ms,
+           "launches": build.launch_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "k5_layouts": {_k5_label(k): n for k, n in rec.counts.items()}}
+    del params, opt, fn, batch
+    _fresh_memory()
+    return out, rec
+
+
+def tp_families_rank(rank: int, dev, mesh, seed: int, smi: str) -> dict:
+    """This rank's part of the other families on the TP mesh (slice 16):
+    mixtral-8x22b and dbrx-132b (phase 11's depth cuts) a 600-token
+    prefill and 4 ticks; hymba-1.5b 2 training steps and a 1,100-token
+    prefill and 4 ticks; rwkv6-7b a 700-token prefill and 4 ticks (both
+    served again in f32 on the same bf16 values); whisper-small 3 rows of
+    1,536 frames, a 32-token prompt and 8 ticks.  Rank 0 holds every K5 layout against the plain version and times it
+    beside SDPA (kernel-line rows).  Returns the report."""
+    out, recs = {}, {}
+    for arch, layers in TP_MOE_ARCHS:
+        out[arch], recs[arch] = _tp_serve_family(
+            arch, rank, dev, mesh, seed, layers=layers,
+            prompt_len=TP_MOE_PROMPT, ticks=TP_DECODE_TICKS)
+    out["hymba-1.5b train"], recs["hymba-1.5b train"] = _tp_train_hymba(
+        rank, dev, mesh, seed)
+    out["hymba-1.5b"], recs["hymba-1.5b"] = _tp_serve_family(
+        "hymba-1.5b", rank, dev, mesh, seed, prompt_len=TP_HYMBA_PREFILL,
+        ticks=TP_DECODE_TICKS, f32=True)
+    out["rwkv6-7b"], _ = _tp_serve_family(
+        "rwkv6-7b", rank, dev, mesh, seed, prompt_len=TP_RWKV_PREFILL,
+        ticks=TP_DECODE_TICKS, f32=True)
+    out["whisper-small"], recs["whisper-small"] = _tp_serve_family(
+        "whisper-small", rank, dev, mesh, seed, prompt_len=WHISPER_PROMPT,
+        ticks=TP_WHISPER_TICKS, batch=WHISPER_BATCH)
+    if rank == 0:
+        out["k5_held"], out["kernel_rows"] = {}, []
+        for label, rec in recs.items():
+            out["k5_held"][label] = hold_k5_record(rec, f"{label} TP")
+            for key in sorted(rec.calls, key=str):
+                out["kernel_rows"].append(k5_layout_row(
+                    f"K5 wgmma, {label} TP", f"{label} TP", rec, key, smi))
+        _fresh_memory()
+    return out
+
+
+def _rel_steps(got: list, want: list, vocab: int) -> list:
+    """Each step's max |got - want| over the vocabulary, relative to the
+    largest entry of ``want``."""
+    return [float((g[..., :vocab] - w[..., :vocab]).abs().max())
+            / float(w[..., :vocab].abs().max()) for g, w in zip(got, want)]
+
+
+def _logits_held(label: str, got: list, want: list, vocab: int,
+                 limit: float = DECODE_VS_PREFILL_REL) -> dict:
+    """Each step's TP logits against the unmeshed run's: finite, within
+    ``limit`` of the largest logit, and the same argmax in
+    every row or, where a row's argmaxes differ, a tie at the precision
+    the two runs share (the unmeshed logits of both tokens within the max
+    |diff|)."""
+    import torch
+    if len(got) != len(want):
+        fail(f"{label} TP: {len(got)} steps of logits, unmeshed {len(want)}")
+    errs = _rel_steps(got, want, vocab)
+    gaps, same = [], True
+    for g, w in zip(got, want):
+        g, w = g[..., :vocab], w[..., :vocab]
+        top = g.argmax(-1)
+        gaps.append(float((w.max(-1).values
+                           - w.gather(-1, top[:, None])[:, 0]).max()))
+        same = same and bool(torch.equal(top, w.argmax(-1)))
+    print(f"{label} TP logits a step (prefill, then each tick): max |diff| "
+          f"/ largest {[round(e, 7) for e in errs]}; argmax logit gaps "
+          f"{gaps}", flush=True)
+    for i, g in enumerate(got):
+        scale = float(want[i][..., :vocab].abs().max())
+        if not (torch.isfinite(g[..., :vocab]).all()
+                and errs[i] <= limit and gaps[i] <= errs[i] * scale):
+            fail(f"{label} TP: step {i} logits max |diff| {errs[i]} of the "
+                 f"largest (limit {limit}), argmax logit gap {gaps[i]}")
+    return {"max_rel_diff": max(errs), "rel_diff": errs,
+            "argmax_same": same, "argmax_gaps": gaps}
+
+
+def _states_rel(got: dict, want: dict) -> dict:
+    """Each recurrent state's max |got - want| relative to the largest
+    entry of ``want``."""
+    if set(got) != set(want):
+        fail(f"TP states {sorted(got)}, unmeshed {sorted(want)}")
+    return {k: float((got[k] - v).abs().max()) / float(v.abs().max())
+            for k, v in want.items()}
+
+
+def _f32_held(arch: str, ref: dict, vocab: int) -> dict:
+    """hymba's or rwkv6-7b's f32 pair (the same bf16 values unmeshed and
+    on the TP mesh): logits as :func:`_logits_held` and every state, each
+    within ``TP_F32_TOL`` of its largest entry.  Then the bf16 pair: the TP
+    run's logits no farther from the unmeshed f32 run than
+    ``TP_BF16_VS_F32_FACTOR`` times the unmeshed bf16 run's largest
+    distance from it.  Returns the readings."""
+    import torch
+    rep = {"f32": _logits_held(f"{arch} f32", ref["tp_f32"]["logits"],
+                               ref["f32"]["logits"], vocab, TP_F32_TOL)}
+    states = _states_rel(ref["tp_f32"]["states"], ref["f32"]["states"])
+    rep["f32"]["state_rel_diff"] = states
+    if not states or not all(torch.isfinite(v).all() for v in
+                             ref["tp_f32"]["states"].values()) \
+            or any(not e <= TP_F32_TOL for e in states.values()):
+        fail(f"{arch} f32 TP: states {states} of their largest entries "
+             f"(limit {TP_F32_TOL})")
+    floor = _rel_steps(ref["unmeshed"]["logits"], ref["f32"]["logits"],
+                       vocab)
+    tp = _rel_steps(ref["tp"]["logits"], ref["f32"]["logits"], vocab)
+    rep["bf16_floor_rel"], rep["bf16_tp_vs_f32_rel"] = floor, tp
+    rep["bf16_state_floor_rel"] = _states_rel(ref["unmeshed"]["states"],
+                                              ref["f32"]["states"])
+    rep["bf16_tp_state_vs_f32_rel"] = _states_rel(ref["tp"]["states"],
+                                                  ref["f32"]["states"])
+    print(f"{arch} bf16 logits' distance from the unmeshed f32 run, a step: "
+          f"unmeshed {[round(x, 5) for x in floor]}, TP "
+          f"{[round(x, 5) for x in tp]} (limit {TP_BF16_VS_F32_FACTOR} x "
+          f"the unmeshed's largest); states: unmeshed "
+          f"{rep['bf16_state_floor_rel']}, TP "
+          f"{rep['bf16_tp_state_vs_f32_rel']}", flush=True)
+    if not max(tp) <= TP_BF16_VS_F32_FACTOR * max(floor):
+        fail(f"{arch} bf16 TP: logits {max(tp)} of the largest from the f32 "
+             f"run, the unmeshed bf16 run {max(floor)}")
+    return rep
+
+
+def _dispatch_held(label: str, k: int, want: list, got: list) -> dict:
+    """The TP run's MoE routings against the unmeshed run's: equal, or,
+    where a token's top-k experts differ, a tie: the unmeshed logits' gap
+    at the k-th boundary within the two runs' logit difference (a bf16
+    rounding on either side flips it).  Counts such tokens."""
+    import torch
+    from repro_torch.models import moe
+    if len(want) != len(got):
+        fail(f"{label} TP: {len(got)} routings, unmeshed {len(want)}")
+    flips, equal, worst = 0, 0, 0.0
+    for (la, da, sa), (lb, db, sb) in zip(want, got):
+        if torch.equal(da, db) and torch.equal(sa, sb):
+            equal += 1
+            continue
+        ia = moe.top_k(la, k)[1].sort(-1).values
+        ib = moe.top_k(lb, k)[1].sort(-1).values
+        moved = (ia != ib).any(-1)
+        if not moved.any():
+            fail(f"{label} TP: a dispatch differs with the same experts "
+                 "chosen")
+        vals = la.sort(-1, descending=True).values
+        gap = (vals[..., k - 1] - vals[..., k])[moved]
+        diff = (la - lb).abs().amax(-1)[moved]
+        if (gap > 2 * diff).any():
+            fail(f"{label} TP: a token's experts moved across a logit gap "
+                 f"{float(gap.max())} wider than the runs' difference")
+        flips += int(moved.sum())
+        worst = max(worst, float(gap.max()))
+    return {"routings": len(want), "equal": equal, "tokens_flipped": flips,
+            "largest_flipped_gap": worst}
+
+
+def check_tp_families(ranks: list, hymba: dict, smi: str) -> tuple:
+    """The families part of both TP ranks' reports (``tp_families_rank``)
+    against rank 0's unmeshed runs (``hymba``: the unmeshed training
+    steps and bf16's floor, run here first): designs, K5 launches a rank,
+    logits, MoE routings, hymba's and RWKV's logits and states in f32 (the
+    bf16 pair's distance from f32 beside them), hymba's losses and grad
+    norms.  Fails on any miss.  Returns (report, rank 0's kernel-line
+    rows)."""
+    import torch
+    from repro_torch.configs import lm_archs
+    r0 = ranks[0]["families"]
+    out = {}
+    for arch in ("mixtral-8x22b", "dbrx-132b", "hymba-1.5b", "rwkv6-7b",
+                 "whisper-small"):
+        cfg = lm_archs.get(arch)
+        ref = r0[arch]
+        rep = {"layers": ref["layers"], "prompt": ref["prompt"],
+               "batch": ref["batch"], "ticks": ref["ticks"]}
+        layers, L = ref["layers"], cfg.n_layers
+        want_k5 = {"mixtral-8x22b": layers, "dbrx-132b": layers,
+                   "hymba-1.5b": L, "rwkv6-7b": 0,
+                   "whisper-small": cfg.encoder_layers + 2 * L
+                   + TP_WHISPER_TICKS * L}[arch]
+        for r in ranks:
+            f = r["families"][arch]
+            k5 = f["launches"].get("flash_attention_wgmma", 0)
+            if f["design"] != TP_FAMILY_DESIGN[arch] or k5 != want_k5 or \
+                    f["launches"].get("flash_attention", 0):
+                fail(f"{arch} TP rank {r['rank']}: design {f['design']}, K5 "
+                     f"wgmma {k5} (want {want_k5}), TF32 "
+                     f"{f['launches'].get('flash_attention', 0)}")
+            if "launches_f32" in f and (
+                    f["launches_f32"].get("flash_attention", 0) != want_k5
+                    or f["launches_f32"].get("flash_attention_wgmma", 0)):
+                fail(f"{arch} f32 TP rank {r['rank']}: K5 launches "
+                     f"{f['launches_f32']} (want TF32 {want_k5})")
+            if r is not ranks[0] and not all(
+                    (a == b).all() for a, b in zip(f["tp"]["logits"],
+                                                   ref["tp"]["logits"])):
+                fail(f"{arch} TP: the two ranks' gathered logits differ")
+        if "tp_f32" in ref:     # hymba, rwkv6-7b: held in f32
+            rep["logits"] = {"max_rel_diff": max(_rel_steps(
+                ref["tp"]["logits"], ref["unmeshed"]["logits"],
+                cfg.vocab))} | _f32_held(arch, ref, cfg.vocab)
+            if not all(bool(torch.isfinite(x).all()) for x in
+                       ref["tp"]["logits"]):
+                fail(f"{arch} bf16 TP: logits not finite")
+        else:
+            rep["logits"] = _logits_held(arch, ref["tp"]["logits"],
+                                         ref["unmeshed"]["logits"],
+                                         cfg.vocab)
+        if cfg.family == "moe":
+            rep["dispatch"] = _dispatch_held(arch, cfg.top_k,
+                                             ref["unmeshed_dispatch"],
+                                             ref["dispatch"])
+            r1 = ranks[1]["families"][arch]["dispatch"]
+            if not all((a[1] == b[1]).all() and (a[2] == b[2]).all()
+                       for a, b in zip(r1, ref["dispatch"])):
+                fail(f"{arch} TP: the two ranks route differently")
+        states = _states_rel(ref["tp"]["states"], ref["unmeshed"]["states"])
+        rep["state_rel_diff"] = states
+        rep["per_rank"] = [{
+            "design": r["families"][arch]["design"],
+            "peak_bytes": r["families"][arch]["peak_bytes"],
+            "prefill_ms": r["families"][arch]["tp"]["prefill_ms"],
+            "decode_ms_per_tick": r["families"][arch]["tp"][
+                "decode_ms_per_tick"],
+            "k5_layouts": r["families"][arch]["k5_layouts"],
+            "local_shapes": r["families"][arch]["local_shapes"]}
+            for r in ranks]
+        rep["unmeshed_prefill_ms"] = ref["unmeshed"]["prefill_ms"]
+        out[arch] = rep
+        print(f"{arch} TP serve ({TP_MESH} mesh, {ref['layers']} layers, "
+              f"prompt {ref['prompt']} x {ref['batch']}, {ref['ticks']} "
+              f"ticks; gloo between two processes on one card, so no figure "
+              f"of TP speed): design {rep['per_rank'][0]['design']}, logits "
+              f"max rel diff {rep['logits']['max_rel_diff']:.4g} (argmax "
+              f"same {rep['logits'].get('argmax_same', 'not held in bf16')})"
+              f", states {states}, f32 pair "
+              f"{rep['logits'].get('f32', 'not run')}, "
+              f"routings {rep.get('dispatch')}, prefill ms "
+              f"{[round(x['prefill_ms'], 1) for x in rep['per_rank']]} "
+              f"(unmeshed {rep['unmeshed_prefill_ms']:.1f}), decode ms a "
+              f"tick {[round(x['decode_ms_per_tick'], 1) for x in rep['per_rank']]}, "
+              f"peak GiB a rank "
+              f"{[round(x['peak_bytes'] / 2**30, 2) for x in rep['per_rank']]}, "
+              f"K5 a rank {want_k5} at {rep['per_rank'][0]['k5_layouts']}, "
+              f"local shapes {rep['per_rank'][0]['local_shapes']} [{smi}]",
+              flush=True)
+    # hymba's training steps against the unmeshed ones, above bf16's floor
+    cfg = lm_archs.get("hymba-1.5b")
+    want_k5 = MESH_STEPS * cfg.n_layers * (2 if cfg.remat else 1)
+    plain_l, plain_n = hymba["losses"], hymba["grad_norms"]
+    floor_l = [abs(a - b) / abs(b) for a, b in zip(hymba["floor_losses"],
+                                                   plain_l)]
+    floor_n = [abs(a - b) / abs(b) for a, b in zip(
+        hymba["floor_grad_norms"], plain_n)]
+    loss_tol = [max(t, 3 * f) for t, f in zip(TP_LOSS_RTOL, floor_l)]
+    norm_tol = [max(t, 3 * f) for t, f in zip(TP_GRAD_NORM_RTOL, floor_n)]
+    train = {"rows": TP_HYMBA_TRAIN[0], "seq": TP_HYMBA_TRAIN[1],
+             "unmeshed_losses": plain_l, "unmeshed_grad_norms": plain_n,
+             "floor_loss_rel": floor_l, "floor_grad_norm_rel": floor_n,
+             "loss_rtol": loss_tol, "grad_norm_rtol": norm_tol,
+             "per_rank": []}
+    for r in ranks:
+        f = r["families"]["hymba-1.5b train"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(f["losses"], plain_l)]
+        rel_n = [abs(a - b) / abs(b) for a, b in zip(f["grad_norms"],
+                                                      plain_n)]
+        k5 = f["launches"].get("flash_attention_wgmma", 0)
+        train["per_rank"].append({k: f[k] for k in (
+            "design", "losses", "grad_norms", "step_ms", "peak_bytes",
+            "k5_layouts")} | {"loss_rel": rel, "grad_norm_rel": rel_n})
+        print(f"hymba-1.5b TP train rank {r['rank']} ({TP_MESH}, "
+              f"{TP_HYMBA_TRAIN[0]} x {TP_HYMBA_TRAIN[1]}, design "
+              f"{f['design']}): losses {f['losses']} vs unmeshed {plain_l} "
+              f"(rel {rel}, bounds {loss_tol}), grad norms "
+              f"{f['grad_norms']} vs {plain_n} (rel {rel_n}, bounds "
+              f"{norm_tol}); bf16's floor (the unmeshed step, each gradient "
+              f"over {TP_FLOOR_SLICES} row slices) {floor_l} / {floor_n}; "
+              f"step ms {[round(x, 1) for x in f['step_ms']]} (gloo through "
+              f"the host), peak {f['peak_bytes'] / 2**30:.2f} GiB, K5 wgmma "
+              f"{k5} at {f['k5_layouts']} [{smi}]", flush=True)
+        if f["design"] != TP_FAMILY_DESIGN["hymba-1.5b"] or \
+                len(rel) != MESH_STEPS or not all(
+                    math.isfinite(x) for x in f["losses"] + f["grad_norms"]) \
+                or any(a > b for a, b in zip(rel, loss_tol)) \
+                or any(a > b for a, b in zip(rel_n, norm_tol)) \
+                or k5 != want_k5 or f["launches"].get("flash_attention", 0):
+            fail(f"hymba-1.5b TP train rank {r['rank']}: design "
+                 f"{f['design']}, losses {f['losses']} vs {plain_l} "
+                 f"(rtol {loss_tol}), grad norms {f['grad_norms']} vs "
+                 f"{plain_n} (rtol {norm_tol}), K5 {k5} (want {want_k5})")
+    out["hymba-1.5b train"] = train
+    out["k5_held"] = r0["k5_held"] | {
+        f"{arch} f32": r0[arch]["k5_held_f32"] for arch in (
+            "hymba-1.5b", "rwkv6-7b")}
+    return out, r0["kernel_rows"]
+
+
+def _sliced_steps(cfg, dev, seed: int, rows: int, seq: int,
+                  slices: int) -> tuple:
+    """``MESH_STEPS`` unmeshed steps of ``cfg`` from ``seed``'s weights at
+    phase 12's lr on ``tokens.SyntheticCorpus(seed)`` batches of ``rows``
+    x ``seq``, each batch's gradient summed over ``slices`` slices of its
+    rows (1: the plain step): (losses, grad norms)."""
+    import gc
+    import torch
     from repro_torch.data import tokens
     from repro_torch.launch import steps
     from repro_torch.models import lm
     from repro_torch.train import optim
 
-    cfg = lm_archs.GEMMA_2B
     params = steps.init_fn(cfg)(torch.Generator(dev).manual_seed(seed), dev)
     opt = steps.opt_init(params)
     leaves = steps.train_leaves(lm.trainable(params))
     ocfg = optim.AdamWConfig(lr=TRAIN_LR, weight_decay=0.1)
     parts = steps.make_loss_parts(cfg)
     corpus = tokens.SyntheticCorpus(tokens.TokenPipelineConfig(
-        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-        seed=seed))
+        vocab=cfg.vocab, seq_len=seq, global_batch=rows, seed=seed))
     losses_, norms = [], []
     for s in range(MESH_STEPS):
-        toks = corpus.sample_batch(s, TRAIN_BATCH)
+        toks = corpus.sample_batch(s, rows)
         batch = steps.batch_on({"tokens": toks[:, :-1],
                                 "labels": toks[:, 1:]}, dev)
         grads, loss_sum = None, 0.0
-        for i in range(TP_FLOOR_SLICES):
-            rows = {k: v[i::TP_FLOOR_SLICES] for k, v in batch.items()}
+        for i in range(slices):
+            part = {k: v[i::slices] for k, v in batch.items()}
             with torch.enable_grad():
-                loss, _, _ = parts(params, rows)
-                g = torch.autograd.grad(loss / TP_FLOOR_SLICES, leaves)
-            loss_sum += float(loss) / TP_FLOOR_SLICES
+                loss, _, _ = parts(params, part)
+                g = torch.autograd.grad(loss / slices, leaves)
+            loss_sum += float(loss) / slices
             grads = list(g) if grads is None else [
                 a + b for a, b in zip(grads, g)]
             del g
@@ -4379,6 +4932,18 @@ def bf16_order_floor(dev, seed: int, phase12: dict) -> dict:
     del params, opt, leaves
     gc.collect()
     torch.cuda.empty_cache()
+    return losses_, norms
+
+
+def bf16_order_floor(dev, seed: int, phase12: dict) -> dict:
+    """Phase 12's first ``MESH_STEPS`` unmeshed gemma-2b steps (seed, lr,
+    batches) with each batch's gradient summed over ``TP_FLOOR_SLICES``
+    slices of its rows: the same sums in another order, so their losses
+    and grad norms against phase 12's are bf16's floor for any reordering
+    (the tensor-parallel step's among them)."""
+    from repro_torch.configs import lm_archs
+    losses_, norms = _sliced_steps(lm_archs.GEMMA_2B, dev, seed, TRAIN_BATCH,
+                                   TRAIN_SEQ, TP_FLOOR_SLICES)
     out = {"slices": TP_FLOOR_SLICES, "losses": losses_, "grad_norms": norms,
            "loss_rel_diff": [abs(a - b) / abs(b) for a, b in
                              zip(losses_, phase12["losses"])],
@@ -4400,13 +4965,21 @@ def tp_train_gemma(dev, smi: str, seed: int, art_dir: Path, phase12: dict,
     times a step on each rank (TF32 never) and ``TP_PREFILL_K5`` times in
     each rank's prefill, and the prefill's logits are within
     ``DECODE_VS_PREFILL_REL`` of the unmeshed prefill's largest with the
-    same argmax.  Returns (the
-    report, rank 0's K5 kernel-line row)."""
+    same argmax; then the other families on the same ranks
+    (:func:`tp_families_rank`, held by :func:`check_tp_families`, hymba's
+    unmeshed training steps and their floor run here first).  Returns (the
+    report, rank 0's K5 kernel-line rows, the families' report)."""
     import gc
     import shutil
     import torch
 
     floor = bf16_order_floor(dev, seed, phase12)
+    from repro_torch.configs import lm_archs
+    hcfg = lm_archs.get("hymba-1.5b")
+    hymba = dict(zip(("losses", "grad_norms"), _sliced_steps(
+        hcfg, dev, seed, *TP_HYMBA_TRAIN, 1)))
+    hymba["floor_losses"], hymba["floor_grad_norms"] = _sliced_steps(
+        hcfg, dev, seed, *TP_HYMBA_TRAIN, TP_FLOOR_SLICES)
     print(f"bf16 order floor (phase 12's steps, each gradient summed over "
           f"{TP_FLOOR_SLICES} row slices): losses {floor['losses']} (rel "
           f"{floor['loss_rel_diff']}), grad norms {floor['grad_norms']} "
@@ -4509,17 +5082,22 @@ def tp_train_gemma(dev, smi: str, seed: int, art_dir: Path, phase12: dict,
         fail(f"gemma-2b TP prefill: max |diff| {logit_diff} vs "
              f"{DECODE_VS_PREFILL_REL} x {logit_scale}, argmax same "
              f"{argmax_same}")
-    return out, ranks[0]["kernel_row"]
+    fam, rows = check_tp_families(ranks, hymba, smi)
+    for r in out["per_rank"]:
+        r.pop("families", None)
+    return out, [ranks[0]["kernel_row"]] + rows, fam
 
 
 def dist_phase(dev, smi: str, seed: int, art_dir: Path,
                phase12: dict) -> dict:
-    """Slices 13 and 15's main path: distribution.  Full-width gemma-2b
-    through ``build_cell``'s meshed train step on a one-rank NCCL mesh (K5
-    held at its layouts) and whisper-small through ``launch.train --mesh
-    1,1``; ``compress`` on the card; gemma-2b tensor-parallel on two ranks
-    of one card (:func:`tp_train_gemma`); the dry run of a production cell
-    a mesh kind.  Every process group is ended before the next part."""
+    """Slices 13, 15 and 16's main path: distribution.  Full-width
+    gemma-2b through ``build_cell``'s meshed train step on a one-rank NCCL
+    mesh (K5 held at its layouts) and whisper-small through ``launch.train
+    --mesh 1,1``; ``compress`` on the card; gemma-2b, then mixtral-8x22b,
+    dbrx-132b, hymba-1.5b, rwkv6-7b and whisper-small tensor-parallel on
+    two ranks of one card (:func:`tp_train_gemma`); the dry run of a
+    production cell a mesh kind.  Every process group is ended before the
+    next part."""
     t0 = time.perf_counter()
     out, rows = {}, []
     out["gemma-2b"], grec, grad = mesh_train_gemma(dev, smi, seed, phase12)
@@ -4533,11 +5111,13 @@ def dist_phase(dev, smi: str, seed: int, art_dir: Path,
     out["whisper-small"], wrec = mesh_train_whisper(dev, smi)
     out["k5_held"]["whisper-small meshed train"] = hold_k5_record(
         wrec, "whisper-small meshed train")
-    out["gemma-2b tp"], row = tp_train_gemma(dev, smi, seed, art_dir,
-                                             phase12, out["gemma-2b"])
+    out["gemma-2b tp"], tp_rows, out["tp families"] = tp_train_gemma(
+        dev, smi, seed, art_dir, phase12, out["gemma-2b"])
     out["k5_held"]["gemma-2b TP train"] = out["gemma-2b tp"]["per_rank"][0][
         "k5_held"]
-    rows.append(row)
+    out["k5_held"].update({f"{k} TP": v for k, v in
+                           out["tp families"].pop("k5_held").items()})
+    rows += tp_rows
     out["dryrun"] = dryrun_cells(smi, art_dir)
     out["kernels"] = rows
     out["seconds"] = time.perf_counter() - t0
@@ -5270,6 +5850,23 @@ if __name__ == "__main__":
             "ranks": [{key: r[key] for key in (
                 "losses", "grad_norms", "step_ms", "peak_bytes", "design",
                 "k5_layouts")} for r in di["gemma-2b tp"]["per_rank"]]},
+        "tp_families_1_2": {arch: {
+            "design": f["per_rank"][0]["design"],
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in f["per_rank"]],
+            **({"step_ms": [r["step_ms"] for r in f["per_rank"]],
+                "losses": [r["losses"] for r in f["per_rank"]],
+                "unmeshed_losses": f["unmeshed_losses"]}
+               if "step_ms" in f["per_rank"][0] else
+               {"prefill_ms": [r["prefill_ms"] for r in f["per_rank"]],
+                "logits_max_rel_diff": f["logits"]["max_rel_diff"],
+                "state_rel_diff": f["state_rel_diff"],
+                **({"f32_logits_max_rel_diff": f["logits"]["f32"][
+                    "max_rel_diff"], "f32_state_rel_diff": f["logits"][
+                    "f32"]["state_rel_diff"]} if "f32" in f["logits"]
+                   else {}),
+                "dispatch": f.get("dispatch")}),
+            "k5_layouts": f["per_rank"][0]["k5_layouts"]}
+            for arch, f in di["tp families"].items()},
         "compress": {key: di["compress"][key] for key in (
             "card_equals_cpu", "psum_equals_decompress", "compress_ms")},
         "dryrun": {k: v for k, v in di["dryrun"].items()},

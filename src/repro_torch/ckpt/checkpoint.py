@@ -12,7 +12,8 @@ package restores in the other.
   joined by ``/``; bf16 (and fp8) leaves are stored as same-width unsigned
   integers under their own dtype name;
 * **async**: :func:`save_async` copies the tree to host memory at once and
-  writes it on a background thread;
+  writes it on a background thread; :func:`wait_pending` joins the writers
+  and raises the first error one met;
 * retention: the ``keep`` newest checkpoints stay.
 
 The manifest goes through this module's own msgpack codec (maps, arrays,
@@ -269,24 +270,41 @@ def save(directory: str, step: int, tree: Any, *, keep: int = 3) -> str:
 
 
 _PENDING: List[threading.Thread] = []
+# the errors of save_async writers not yet raised by wait_pending
+_ERRORS: List[BaseException] = []
+
+
+def _write_noting(*args) -> None:
+    try:
+        _write(*args)
+    except BaseException as e:  # noqa: BLE001 -- re-raised by wait_pending
+        _ERRORS.append(e)
 
 
 def save_async(directory: str, step: int, tree: Any, *, keep: int = 3
                ) -> threading.Thread:
     """Copy ``tree`` to host memory now; write it on a background thread
-    (:func:`wait_pending` joins every such thread)."""
+    (:func:`wait_pending` joins every such thread and raises the first
+    error of one)."""
     items = _snapshot(tree)
-    t = threading.Thread(target=_write, args=(directory, step, items, keep),
-                         daemon=True)
+    t = threading.Thread(target=_write_noting,
+                         args=(directory, step, items, keep), daemon=True)
     t.start()
     _PENDING.append(t)
     return t
 
 
 def wait_pending() -> None:
-    """Join every :func:`save_async` writer still running."""
+    """Join every :func:`save_async` writer still running, then raise the
+    first error a writer met since the last call (a step that already
+    exists is not replaced: ``os.replace`` onto its directory fails), if
+    any."""
     while _PENDING:
         _PENDING.pop().join()
+    if _ERRORS:
+        errors = list(_ERRORS)
+        _ERRORS.clear()
+        raise errors[0]
 
 
 def _steps(directory: str) -> List[int]:

@@ -11,19 +11,23 @@ code runs unsharded on one device and under a mesh without change.
 Inside a context a ``DTensor`` is redistributed to the resolved
 placements.  The port's meshed steps (``launch.steps``) run the model on
 each rank's local tensors, so their activations are plain tensors and
-pass through :func:`constrain`.  Two designs share the context:
+pass through :func:`constrain`.  They run every family tensor parallel
+(``lm.tp_view``): each weight is read as this rank's shard
+(:func:`tp_local`), the residual stream is sharded on ``embed`` as the
+reference constrains it, and the model gathers an activation over
+``model`` where a whole row is needed (:func:`gather_model`: the norms'
+rows and weights, attention's k and v and its merged heads, the FFN's and
+the experts' hidden units, the SSM's channels, RWKV's heads).  A product
+of this rank's channels with a replicated weight is a partial sum
+(:func:`sum_partials`), the SSM's ``in_proj`` columns are re-paired by one
+all-to-all (:func:`pair_halves`), and a term every rank computes whole
+(the MoE aux loss) counts once in the gradient (:func:`share_model`).  The
+helpers read a tensor's width against the whole one, so the same model
+code runs unsharded.
 
-* tensor parallel (the ``dense`` and ``vlm`` families, ``lm.tp_view``):
-  each weight is read as this rank's shard (:func:`tp_local`), the
-  residual stream is sharded on ``embed`` as the reference constrains it,
-  and the model gathers an activation over ``model`` where a whole row is
-  needed (:func:`gather_model`: the norms' rows and weights, attention's
-  k and v and its merged heads, the FFN's hidden units).  The helpers read
-  a tensor's width against the whole one, so the same model code runs
-  unsharded;
-* gather (every other family, ``lm.local_view``): each weight is
-  all-gathered whole at its use (:func:`gathered`), and every rank of
-  ``model`` computes the same layer whole.
+The gradient of a whole activation on a rank is partial over ``model``
+(each rank's share of it: the sum over the ranks is the gradient), and
+that of a rank's piece is its own; the helpers' backwards keep to that.
 """
 from __future__ import annotations
 
@@ -245,12 +249,15 @@ def _reduce_scatter0(t: torch.Tensor, group) -> torch.Tensor:
         t.contiguous(), "sum", 0, group))
 
 
-def _all_to_all0(t: torch.Tensor, group) -> torch.Tensor:
-    """``[size, ...]``: piece ``s`` to rank ``s``; returns the pieces each
-    rank sent this one, in rank order."""
+def _all_to_all0(t: torch.Tensor, group, out_sizes=None,
+                 in_sizes=None) -> torch.Tensor:
+    """``[size, ...]``: piece ``s`` to rank ``s`` (with split sizes: rows
+    ``in_sizes[s]`` of ``t`` to rank ``s``); returns the pieces each rank
+    sent this one, in rank order (``out_sizes[r]`` rows from rank
+    ``r``)."""
     from torch.distributed import _functional_collectives as funcol
     return funcol.wait_tensor(funcol.all_to_all_single(
-        t.contiguous(), None, None, group))
+        t.contiguous(), out_sizes, in_sizes, group))
 
 
 def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -280,18 +287,21 @@ class _GatherModel(torch.autograd.Function):
         return mine[..., :ctx.k], None, None
 
 
-def gather_model(x: torch.Tensor, n: int, what: str) -> torch.Tensor:
-    """``x`` whole on its last dim of ``n``: itself when it is whole
-    already (a replicated weight's output, or no ``model`` axis), else its
-    column pieces all-gathered over ``model`` (:func:`chunk`'s split).
-    Differentiable: the backward is a reduce-scatter.  ``what`` names the
-    activation for :func:`traffic`."""
-    if x.shape[-1] == n:
+def gather_model(x: torch.Tensor, n: int, what: str,
+                 dim: int = -1) -> torch.Tensor:
+    """``x`` whole on its ``dim`` (the last by default) of ``n``: itself
+    when it is whole already (a replicated weight's output, or no
+    ``model`` axis), else its pieces all-gathered over ``model``
+    (:func:`chunk`'s split).  Differentiable: the backward is a
+    reduce-scatter.  ``what`` names the activation for :func:`traffic`."""
+    if x.shape[dim] == n:
         return x
-    if model_group()[0] is None or x.shape[-1] != chunk(n)[1]:
-        raise ValueError(f"a [..., {x.shape[-1]}] tensor is not this rank's "
-                         f"piece of {n} columns over 'model'")
-    return _GatherModel.apply(x, n, what)
+    if model_group()[0] is None or x.shape[dim] != chunk(n)[1]:
+        raise ValueError(f"{x.shape[dim]} entries of dim {dim} are not this "
+                         f"rank's piece of {n} over 'model'")
+    if dim in (-1, x.dim() - 1):
+        return _GatherModel.apply(x, n, what)
+    return _GatherModel.apply(x.movedim(dim, -1), n, what).movedim(-1, dim)
 
 
 def model_slice(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -299,6 +309,13 @@ def model_slice(x: torch.Tensor, dim: int) -> torch.Tensor:
     communication; the gradient of the rest is 0 on this rank)."""
     start, size = chunk(x.shape[dim])
     return x.narrow(dim, start, size)
+
+
+def own_piece(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """This rank's piece of ``x``'s ``dim`` of ``n``: :func:`model_slice`
+    of a whole one, ``x`` itself when it holds the piece already (a
+    sharded leaf read by ``tp_local``)."""
+    return model_slice(x, dim) if x.shape[dim] == n else x
 
 
 class _ColumnsToRows(torch.autograd.Function):
@@ -382,3 +399,126 @@ def vocab_start(padded_vocab: int, width: int) -> Optional[int]:
         raise ValueError(f"{width} vocabulary columns are not this rank's "
                          f"piece of {padded_vocab}")
     return start
+
+
+class _SumPartials(torch.autograd.Function):
+    """Each rank's partial sum -> their sum over ``model``, whole on every
+    rank; the backward sums the ranks' partial gradients of the whole, the
+    gradient of every rank's term."""
+
+    @staticmethod
+    def forward(ctx, x, what):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.what = what
+        return _note(what, "all-reduce", funcol.wait_tensor(
+            funcol.all_reduce(x.contiguous(), "sum", model_group()[0])))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+        return _note(ctx.what, "all-reduce", funcol.wait_tensor(
+            funcol.all_reduce(g.contiguous(), "sum", model_group()[0]))), None
+
+
+def sum_partials(x: torch.Tensor, what: str) -> torch.Tensor:
+    """The sum over ``model`` of each rank's partial sum ``x`` (a product
+    of this rank's channels with their rows of a replicated weight), whole
+    on every rank; ``x`` itself without a ``model`` axis."""
+    return x if model_group()[0] is None else _SumPartials.apply(x, what)
+
+
+class _ShareModel(torch.autograd.Function):
+    """``x`` as it is; its gradient divided over the ranks of ``model``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.size = model_group()[1]
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size
+
+
+def share_model(x: torch.Tensor) -> torch.Tensor:
+    """A term every rank of ``model`` computes whole from whole inputs (the
+    MoE aux loss): its value, with each rank's gradient its share, so that
+    the gradients summed over ``model`` count it once."""
+    return x if model_group()[0] is None else _ShareModel.apply(x)
+
+
+def _pair_splits(n: int, src: int) -> List[Tuple[int, int, int, int]]:
+    """For each rank ``s`` of ``model``: where in rank ``src``'s columns
+    of ``[A | B]`` (``2 n`` wide, :func:`chunk`'s split) rank ``s``'s
+    channels of A start and how many ``src`` holds, and the same for B."""
+    _, size, _ = model_group()
+    c, c2 = -(-n // size), -(-2 * n // size)
+    lo = min(src * c2, 2 * n)
+    hi = min(lo + c2, 2 * n)
+    out = []
+    for s in range(size):
+        a0, a1 = min(s * c, n), min(s * c + c, n)
+        piece = []
+        for base in (0, n):
+            start, stop = max(lo, base + a0), min(hi, base + a1)
+            piece += [start - lo, max(stop - start, 0)]
+        out.append(tuple(piece))
+    return out
+
+
+class _PairHalves(torch.autograd.Function):
+    """This rank's columns of ``[A | B]`` -> its channels of A and of B:
+    one all-to-all over ``model`` (each rank sends each other the columns
+    it holds of that rank's channels); the backward is the reverse one."""
+
+    @staticmethod
+    def forward(ctx, t, n, what):
+        group, size, rank = model_group()
+        sends = _pair_splits(n, rank)
+        recvs = [_pair_splits(n, r)[rank] for r in range(size)]
+        ctx.group, ctx.what, ctx.width = group, what, t.shape[-1]
+        ctx.sends, ctx.recvs = sends, recvs
+        src = t.movedim(-1, 0)
+        got = _note(what, "all-to-all", _all_to_all0(
+            torch.cat([src[o:o + k] for sa, ka, sb, kb in sends
+                       for o, k in ((sa, ka), (sb, kb))]),
+            group, [ka + kb for _, ka, _, kb in recvs],
+            [ka + kb for _, ka, _, kb in sends]))
+        pieces = torch.split(got, [ka + kb for _, ka, _, kb in recvs])
+        a = torch.cat([x[:ka] for x, (_, ka, _, _) in zip(pieces, recvs)])
+        b = torch.cat([x[ka:] for x, (_, ka, _, _) in zip(pieces, recvs)])
+        return a.movedim(0, -1), b.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, ga, gb):
+        ka = [k for _, k, _, _ in ctx.recvs]
+        kb = [k for _, _, _, k in ctx.recvs]
+        send = [g for pa, pb in zip(torch.split(ga.movedim(-1, 0), ka),
+                                    torch.split(gb.movedim(-1, 0), kb))
+                for g in (pa, pb)]
+        got = _note(ctx.what, "all-to-all", _all_to_all0(
+            torch.cat(send), ctx.group,
+            [a + b for _, a, _, b in ctx.sends],
+            [a + b for a, b in zip(ka, kb)]))
+        grad = got.new_zeros((ctx.width,) + tuple(got.shape[1:]))
+        for (sa, na, sb, nb), x in zip(ctx.sends, torch.split(
+                got, [a + b for _, a, _, b in ctx.sends])):
+            grad[sa:sa + na] = x[:na]
+            grad[sb:sb + nb] = x[na:]
+        return grad.movedim(0, -1), None, None
+
+
+def pair_halves(t: torch.Tensor, n: int, what: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``t [..., 2n]`` (``[A | B]``, the SSM's ``xs | z``) as (A, B) on
+    this rank's channels: halved when whole (every channel, as on one
+    device), else, when ``t`` holds this rank's :func:`chunk` of the
+    ``2n`` columns, re-paired by one all-to-all (the chunks of ``2n`` do
+    not follow those of ``n``: at 2 ranks rank 0 holds all of A)."""
+    if t.shape[-1] == 2 * n:
+        a, b = torch.chunk(t, 2, dim=-1)
+        return a, b
+    if model_group()[0] is None or t.shape[-1] != chunk(2 * n)[1]:
+        raise ValueError(f"a [..., {t.shape[-1]}] tensor is not this rank's "
+                         f"piece of {2 * n} columns over 'model'")
+    return _PairHalves.apply(t, n, what)

@@ -12,7 +12,7 @@ unsupported operations fail here, which is the point.  Each record holds:
 * ``status``: ``ok``, ``skipped`` (with ``reason``, from
   ``steps.cell_runnable``) or ``error`` (with ``error`` and ``traceback``);
 * ``design``: how the step computes over ``model`` (``steps.design``:
-  ``tp``, ``tp (q whole)`` or ``gather``);
+  ``tp`` or ``tp (q whole)``);
 * ``collectives``: count and output bytes by kind (``all-reduce``,
   ``all-gather``, ``reduce-scatter``, ``all-to-all``,
   ``collective-permute``) and ``total_bytes``, counted by
@@ -21,9 +21,15 @@ unsupported operations fail here, which is the point.  Each record holds:
 * ``tp_collectives``: the tensor-parallel design's share of those bytes
   by purpose and kind (``act_sharding.traffic``: ``ffn all-gather``, the
   FFN's hidden units gathered before ``w_down``, and its backward's
-  ``ffn reduce-scatter``; ``head all-to-all``, the tied table's
-  vocabulary rows; ``rows``, ``kv``, ``q``, ``heads``, ``norm`` and
-  ``vocab``), empty for the gather design;
+  ``ffn reduce-scatter``; ``moe ffn``, the experts' hidden units (``E C``
+  slots a group, about ``top_k * capacity_factor`` times its tokens);
+  ``head all-to-all``, the tied table's vocabulary rows; ``ssm in_proj
+  all-to-all``, the hybrid's ``xs | z`` columns re-paired onto its
+  channels, ``ssm dt`` / ``b`` / ``c all-reduce``, its partial sums over
+  channels, and ``ssm channels``; ``rkv`` and ``rwkv heads``, RWKV's heads,
+  ``rwkv ffn``, its channel mix, and ``ddl_b``, its one gathered weight;
+  ``cross kv``, whisper's cross k and v; ``rows``, ``kv``, ``q``,
+  ``heads``, ``norm`` and ``vocab``), empty when ``model`` is 1;
 * ``cost_analysis.flops``: rank 0's flops, from
   ``torch.utils.flop_counter.FlopCounterMode`` (the meta forward of K5
   is its plain version a block of q rows at a time, the same products);
@@ -33,11 +39,9 @@ unsupported operations fail here, which is the point.  Each record holds:
   included, from ``torch.distributed._tools.mem_tracker.MemTracker``);
 * ``devices``, ``mesh_shape``, ``run_s``.
 
-The numbers are those of the port's meshed step as it stands: the dense
-and vlm families compute each block on their weight shards (``tp``; the
-q heads whole where they do not split evenly, ``tp (q whole)``), the
-other families gather every weight whole at its use, every rank of
-``model`` computing each layer whole (``gather``).
+The numbers are those of the port's meshed step as it stands: every
+family computes each block on its weight shards (``tp``; the q heads
+whole where they do not split evenly, ``tp (q whole)``).
 
 The reference's ``hlo_bytes``, ``lower_s``, ``compile_s``, its HLO dump
 and its loop-corrected ``analysis`` have no counterpart: nothing is
@@ -54,7 +58,7 @@ Usage::
   python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k \\
       --mesh single
   python -m repro_torch.launch.dryrun --all     # every cell, cached
-  python -m repro_torch.launch.dryrun --all --summary experiments/TORCH_dryrun_tp.json
+  python -m repro_torch.launch.dryrun --all --summary experiments/TORCH_dryrun_tp_families.json
 """
 from __future__ import annotations
 

@@ -6,21 +6,15 @@ The distribution half builds a (architecture x shape x mesh) cell: the
 abstract arguments (meta tensors: no storage), their spec trees
 (``dist.sharding``), and :func:`build_cell`'s step over ``DTensor``
 arguments.  A meshed step runs the model on each rank's local tensors,
-its slice of the batch over the data-parallel axes, through the view
-:func:`design` names (``lm.mesh_view``):
-
-* ``tp`` / ``tp (q whole)``, the ``dense`` and ``vlm`` families: each
-  block computes on this rank's weight shards over ``model``
-  (``lm.tp_view``), with its own q heads (or, where the heads do not split
-  evenly, all of them), the residual sharded on ``embed``, the head and
-  the loss on its vocabulary columns;
-* ``gather``, the other families: each weight all-gathered at its use
-  (``lm.local_view``), every rank of ``model`` computing each layer whole.
+its slice of the batch over the data-parallel axes, tensor parallel
+(``lm.tp_view``, every family): each block computes on this rank's weight
+shards over ``model``, with its own q heads (``tp``; ``tp (q whole)``
+where the heads do not split evenly, see :func:`design`), the residual
+sharded on ``embed``, the head and the loss on its vocabulary columns.
 
 Gradients come back reduced over the data-parallel axes (and, for a
-replicated leaf of a ``tp`` step, over ``model``) and placed as their
-parameters, and AdamW steps each rank's shards
-(:func:`make_mesh_train_step`).
+replicated leaf, over ``model``) and placed as their parameters, and
+AdamW steps each rank's shards (:func:`make_mesh_train_step`).
 """
 from __future__ import annotations
 
@@ -96,10 +90,9 @@ def make_loss_parts(cfg: ArchConfig):
         if cfg.is_enc_dec:
             hidden, aux = whisper.forward_train(
                 params, cfg, batch["audio_embed"], batch["tokens"])
-            head = params.lm_head
         else:
             hidden, aux = lm.forward_train(params, cfg, batch["tokens"])
-            head = lm.head_matrix(params, cfg)
+        head = lm.head_matrix(params, cfg)
         loss, count = losses.chunked_cross_entropy(
             hidden, head, batch["labels"], vocab=cfg.vocab,
             chunk=cfg.loss_chunk, vocab_start=act_sharding.vocab_start(
@@ -305,16 +298,19 @@ def _with_rules(fn, mesh):
 
 def design(cfg: ArchConfig, mesh) -> str:
     """How a meshed step of ``cfg`` computes over ``model``: ``tp`` (each
-    rank its weight shards and its own q heads), ``tp (q whole)`` (the
-    same, q gathered whole: ``wq`` is not split, or its heads do not split
-    evenly, see ``attention.local_heads``) or ``gather`` (each weight
-    gathered whole, the families outside ``lm.TP_FAMILIES``)."""
-    if cfg.family not in lm.TP_FAMILIES:
-        return "gather"
+    rank its weight shards and its own q heads: RWKV's heads of its time
+    mix) or ``tp (q whole)`` (the same, q gathered whole: ``wq`` is not
+    split, or its heads do not split evenly, see
+    ``attention.local_heads``)."""
     size = act_sharding.axis_sizes(mesh).get("model", 1)
-    spec = lm.attn_spec(cfg)
-    split = shd.is_sharded((cfg.d_model, spec.n_heads * spec.head_dim))
-    if size == 1 or (split and attention.local_heads(spec, size)):
+    if cfg.family == "ssm":     # RWKV: wr [d, d], heads of d / n_heads
+        split = shd.is_sharded((cfg.d_model, cfg.d_model))
+        local = cfg.n_heads % size == 0
+    else:
+        spec = lm.attn_spec(cfg)
+        split = shd.is_sharded((cfg.d_model, spec.n_heads * spec.head_dim))
+        local = attention.local_heads(spec, size)
+    if size == 1 or (split and local):
         return "tp"
     return "tp (q whole)"
 
@@ -346,18 +342,16 @@ def make_mesh_train_step(cfg: ArchConfig, mesh, *,
     by the sharding rules (:func:`shd.distribute_params`), the batch
     ``DTensor``s split over the data-parallel axes (:func:`shard_batch`).
 
-    Each rank computes the loss of its rows through ``lm.mesh_view``: on
+    Each rank computes the loss of its rows through ``lm.tp_view``: on
     its weight shards, the head's vocabulary columns and the loss reduced
-    over ``model`` (the :data:`lm.TP_FAMILIES`), or with every weight
-    gathered at its use (the others: the ranks of ``model`` compute the
-    same).  Its objective is its share of the global one (its token sum
-    over the global count, its rows' aux mean over the global rows), so the
-    gradients summed over the data-parallel axes (and over ``model`` for a
-    replicated leaf of the tensor-parallel design, where each rank's part
-    is its heads' and columns') are those of the unmeshed step: a sharded
-    leaf's come back already placed on its shards.  Metrics are the global
-    ``loss``, ``total_loss``, ``tokens``, ``grad_norm`` and ``lr``, the
-    same on every rank.  Parameters update in place."""
+    over ``model``.  Its objective is its share of the global one (its
+    token sum over the global count, its rows' aux mean over the global
+    rows), so the gradients summed over the data-parallel axes (and over
+    ``model`` for a replicated leaf, where each rank's part is its heads'
+    and columns') are those of the unmeshed step: a sharded leaf's come
+    back already placed on its shards.  Metrics are the global ``loss``,
+    ``total_loss``, ``tokens``, ``grad_norm`` and ``lr``, the same on every
+    rank.  Parameters update in place."""
     ocfg = opt_cfg or optim.AdamWConfig(lr=3e-4, weight_decay=0.1)
     parts = make_loss_parts(cfg)
 
@@ -367,7 +361,7 @@ def make_mesh_train_step(cfg: ArchConfig, mesh, *,
         rows_l = torch.tensor(float(local["tokens"].shape[0]),
                               device=local["tokens"].device)
         with act_sharding.activation_rules(mesh), torch.enable_grad():
-            loss_l, count_l, aux_l = parts(lm.mesh_view(params, cfg), local)
+            loss_l, count_l, aux_l = parts(lm.tp_view(params), local)
             count = _dp_sum(count_l.detach(), mesh)
             rows = _dp_sum(rows_l, mesh)
             objective = loss_l * (count_l / count) \
@@ -432,7 +426,7 @@ def _from_compute(t: torch.Tensor, mesh, dim: Optional[int], split: bool,
 def _serve_step(cfg: ArchConfig, shape: ShapeSpec, mesh):
     """The prefill or decode step of a cell over ``DTensor`` arguments:
     each rank runs its rows (every row when the batch does not divide the
-    data-parallel axes) through ``lm.mesh_view``, the outputs placed as the
+    data-parallel axes) through ``lm.tp_view``, the outputs placed as the
     reference's out shardings (logits ``(dp, model)``: a tensor-parallel
     step's come out as this rank's vocabulary columns; the cache by its
     specs, k and v whole on every rank of ``model``)."""
@@ -455,14 +449,14 @@ def _serve_step(cfg: ArchConfig, shape: ShapeSpec, mesh):
 
         def prefill(params, tokens, *audio):
             ins = [_to_compute(t, mesh, 0, split) for t in (tokens, *audio)]
-            return outputs(*step(lm.mesh_view(params, cfg), *ins))
+            return outputs(*step(lm.tp_view(params), *ins))
         return prefill
     step = make_decode_step(cfg)
 
     def decode(params, cache, tokens):
         local = {k: _to_compute(v, mesh, _batch_dim(cfg, k), split)
                  for k, v in cache.items()}
-        return outputs(*step(lm.mesh_view(params, cfg), local,
+        return outputs(*step(lm.tp_view(params), local,
                              _to_compute(tokens, mesh, 0, split)))
     return decode
 

@@ -17,10 +17,9 @@ the rank and world size come from the environment (``torchrun``'s
 process without them is one rank on an in-process store), NCCL on CUDA,
 gloo on the CPU.  Parameters and AdamW moments are placed by
 ``dist.sharding``, each batch split over ``data``
-(``launch.steps.make_mesh_train_step``); the dense and vlm families
-compute each block on their weight shards over ``model`` (tensor
-parallel), the others gather each weight whole at its use
-(``launch.steps.design``).  ``--mesh 1,1`` takes the same
+(``launch.steps.make_mesh_train_step``); every family computes each
+block on its weight shards over ``model`` (tensor parallel,
+``launch.steps.design``).  ``--mesh 1,1`` takes the same
 path on one rank; without ``--mesh`` the unmeshed step runs.  Checkpoints
 hold whole tensors in the reference's format, written by rank 0, so any
 mesh restores any other's.

@@ -19,7 +19,9 @@ rank's column shards: q keeps its own heads where they split evenly
 (:func:`local_heads`), else it is gathered whole; k and v are gathered
 whole (what the cache's spec holds: replicated over ``model``); the
 heads' output is gathered before ``wo``, whose column shard gives this
-rank's ``embed`` columns of the residual update.
+rank's ``embed`` columns of the residual update.  Cross attention
+(whisper) splits its q heads the same way over the whole cross k and v,
+which :func:`project_kv` gathers once a request.
 """
 from __future__ import annotations
 
@@ -115,6 +117,13 @@ def local_heads(spec: AttnSpec, size: int) -> Optional[int]:
     return hl if hl % g == 0 or g % hl == 0 else None
 
 
+def _whole(t: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    """``t``'s columns whole over ``model`` (:func:`gather_model`), in
+    the row-major layout K5 reads (its head dim contiguous: a gather's
+    columns come back strided)."""
+    return gather_model(t, n, what).contiguous()
+
+
 def _head_split(spec: AttnSpec, q: torch.Tensor) -> Tuple[torch.Tensor,
                                                            slice]:
     """q ``[B, S, cols]`` (whole, or this rank's columns) -> (q with the
@@ -124,7 +133,7 @@ def _head_split(spec: AttnSpec, q: torch.Tensor) -> Tuple[torch.Tensor,
         return q, slice(0, hk)
     hl = local_heads(spec, act_sharding.model_group()[1])
     if hl is None:
-        return gather_model(q, h * hd, "q"), slice(0, hk)
+        return _whole(q, h * hd, "q"), slice(0, hk)
     first, g = act_sharding.chunk(h * hd)[0] // hd, h // hk
     return q, slice(first // g, (first + hl - 1) // g + 1)
 
@@ -148,7 +157,7 @@ def _project_qkv(p: Attention, spec: AttnSpec, x: torch.Tensor,
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
-    k, v = gather_model(k, hk * hd, "kv"), gather_model(v, hk * hd, "kv")
+    k, v = _whole(k, hk * hd, "kv"), _whole(v, hk * hd, "kv")
     q, kv = _head_split(spec, q)
     hk_q = kv.stop - kv.start
     q = q.reshape(b, s, hk_q, -1, hd).permute(0, 2, 3, 1, 4)
@@ -345,25 +354,27 @@ def cross_attention(p: Attention, spec: AttnSpec, x: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Encoder-decoder cross attention (whisper): q from ``x [B, S, D]``,
     k/v precomputed ``[B, Hkv, S_enc, hd]``; no mask, no rope.  One
-    non-causal K5 launch on the card, at Sq = S (Sq = 1 when decoding)."""
+    non-causal K5 launch on the card, at Sq = S (Sq = 1 when decoding), on
+    this rank's q heads of a tensor-parallel view where they split."""
     b, s, _ = x.shape
-    hk, hd = spec.n_kv_heads, spec.head_dim
-    g = spec.n_heads // hk
+    hd = spec.head_dim
     dt = x.dtype
     q = x @ p.wq.to(dt)
     if spec.qkv_bias:
         q = q + p.bq.to(dt)
-    q = q.reshape(b, s, hk, g, hd).permute(0, 2, 3, 1, 4)
+    q, kv = _head_split(spec, q)
+    q = q.reshape(b, s, kv.stop - kv.start, -1, hd).permute(0, 2, 3, 1, 4)
     skv = k.shape[2]
-    o = flash_scan(q, k, v, causal=False, window=None,
+    o = flash_scan(q, k[:, kv], v[:, kv], causal=False, window=None,
                    q_positions=range(skv, skv + s), k_positions=range(skv))
-    return _merge_heads(o) @ p.wo.to(dt)
+    return _out_proj(p, spec, o, dt)
 
 
 def project_kv(p: Attention, spec: AttnSpec, x: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The K/V projection alone (the cross-attention source): x ``[B, S,
-    D]`` -> k, v ``[B, Hkv, S, hd]``."""
+    D]`` -> k, v ``[B, Hkv, S, hd]``, gathered whole over ``model`` on a
+    tensor-parallel view."""
     b, s, _ = x.shape
     hk, hd = spec.n_kv_heads, spec.head_dim
     dt = x.dtype
@@ -372,5 +383,6 @@ def project_kv(p: Attention, spec: AttnSpec, x: torch.Tensor
     if spec.qkv_bias:
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
+    k, v = _whole(k, hk * hd, "cross kv"), _whole(v, hk * hd, "cross kv")
     return (k.reshape(b, s, hk, hd).permute(0, 2, 1, 3),
             v.reshape(b, s, hk, hd).permute(0, 2, 1, 3))

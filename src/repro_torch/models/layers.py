@@ -11,6 +11,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import act_sharding
+
 
 def he_init(generator: torch.Generator, shape: Sequence[int],
             in_axis: int = -2, device=None) -> torch.Tensor:
@@ -44,6 +46,16 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     inv = torch.rsqrt(var + eps)
     y = (x - mu.to(dt)) * inv.to(dt)
     return y * scale.to(dt) + bias.to(dt)
+
+
+def row_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   d: int) -> torch.Tensor:
+    """:func:`layer_norm` of the residual ``x`` as whole ``d``-wide rows: on
+    a tensor-parallel view ``x`` and the norm's ``d``-entry weights hold
+    this rank's columns, and all three are gathered over ``model``."""
+    gather = act_sharding.gather_model
+    return layer_norm(gather(x, d, "rows"), gather(scale, d, "norm"),
+                      gather(bias, d, "norm"))
 
 
 def rope_freqs(head_dim: int, theta: float = 10_000.0,

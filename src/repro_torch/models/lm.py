@@ -20,15 +20,14 @@ gradient reaches the f32 masters.
 Parameters are created frozen (``requires_grad=False``), so serving
 records no graph; :func:`trainable` turns them on for training.
 
-On a mesh the model runs on each rank's local tensors through one of two
-views: :func:`tp_view` (the :data:`TP_FAMILIES`: each weight read as its
-shard, the residual stream sharded on ``embed``, activations gathered
+On a mesh the model runs on each rank's local tensors through
+:func:`tp_view` (every family, :data:`TP_FAMILIES`): each weight read as
+its shard, the residual stream sharded on ``embed``, activations gathered
 over ``model`` where a whole row is needed, the head and the loss split
-over the vocabulary) or :func:`local_view` (the other families: each
-weight gathered whole, every rank of ``model`` computing each layer
-whole).  The code below is the same for both and for one device: it
-reads each tensor's width against the whole one
-(``act_sharding.gather_model``).
+over the vocabulary, the recurrent states (the hybrid's SSM, RWKV's WKV)
+on this rank's channels or heads inside a step and whole in the cache.
+The code below is the same for a view and for one device: it reads each
+tensor's width against the whole one (``act_sharding.gather_model``).
 """
 from __future__ import annotations
 
@@ -46,8 +45,9 @@ from repro_torch.models.attention import AttnSpec, KVCache
 from repro_torch.models.config import ArchConfig
 
 PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-# the families whose blocks compute on their weight shards on a mesh
-TP_FAMILIES = ("dense", "vlm")
+# the families whose blocks compute on their weight shards on a mesh (the
+# LM's and whisper's ``audio``): every one
+TP_FAMILIES = PORTED_FAMILIES + ("audio",)
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -243,8 +243,8 @@ def compute_copy(model: LM, cfg: ArchConfig, device=None) -> LM:
 
 
 def peek(model, name: str) -> torch.Tensor:
-    """Parameter ``name`` of a model or of a :func:`local_view` of one, as
-    it is stored (for its type and device: no gather, no cast)."""
+    """Parameter ``name`` of a model or of a view of one, as it is stored
+    (for its type and device: no gather, no cast)."""
     if isinstance(model, _CastView):
         model = model._module
     return getattr(model, name)
@@ -366,6 +366,22 @@ def _ssm_branch(cfg: ArchConfig, blk: Block, h: torch.Tensor,
     return ssm.apply_ssm(blk.ssm, sspec, h, state)
 
 
+def _whole_ssm(cfg: ArchConfig, state: Optional[ssm.SSMState]
+               ) -> Optional[ssm.SSMState]:
+    """A hybrid layer's new SSM state on every channel (the cache's
+    placement: whole over ``model``)."""
+    return None if state is None else ssm.whole_state(ssm_spec(cfg), state)
+
+
+def _rwkv_block(cfg: ArchConfig, blk, x: torch.Tensor,
+                state: rwkv.RWKVState
+                ) -> Tuple[torch.Tensor, rwkv.RWKVState]:
+    """An RWKV layer of a prefill or decode step, its state whole over
+    ``model`` (the cache's placement)."""
+    x, st = rwkv.rwkv_block(blk, rwkv_spec(cfg), x, state)
+    return x, rwkv.whole_state(rwkv_spec(cfg), st)
+
+
 def _row_norm(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor
               ) -> torch.Tensor:
     """The block norm of the residual ``x`` as whole rows.  On a
@@ -399,7 +415,7 @@ def _block_prefill(cfg: ArchConfig, blk: Block, x: torch.Tensor,
     ssm_out, ssm_state = _ssm_branch(cfg, blk, h, None)
     x = x + _mix_out(attn_out, ssm_out)
     out, _ = _ffn_out(cfg, blk, _row_norm(cfg, x, blk.ln2))
-    return x + out, kv, ssm_state
+    return x + out, kv, _whole_ssm(cfg, ssm_state)
 
 
 def _block_decode(cfg: ArchConfig, blk: Block, x: torch.Tensor,
@@ -413,7 +429,7 @@ def _block_decode(cfg: ArchConfig, blk: Block, x: torch.Tensor,
     ssm_out, ssm_new = _ssm_branch(cfg, blk, h, ssm_state)
     x = x + _mix_out(attn_out, ssm_out)
     out, _ = _ffn_out(cfg, blk, _row_norm(cfg, x, blk.ln2))
-    return x + out, kv_new, ssm_new
+    return x + out, kv_new, _whole_ssm(cfg, ssm_new)
 
 
 def _embed(model: LM, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -528,34 +544,21 @@ def cast_view(module: nn.Module, dtype: torch.dtype):
     return _CastView(module, dtype)
 
 
-def local_view(model: nn.Module):
+def tp_view(model: nn.Module):
     """``model`` (an :class:`LM` or a ``whisper.Whisper``) with every
-    parameter read whole at its use, in its own type: a model whose
-    parameters are sharded ``DTensor``s runs as one that holds them all,
-    one weight gathered at a time (a layer's gathered weights are freed
-    when the layer ends, and recomputed with it under remat), every rank
-    of ``model`` computing each layer whole.  The meshed steps' design for
-    the families outside :data:`TP_FAMILIES`."""
-    return _CastView(model, None)
-
-
-def tp_view(model: LM):
-    """``model`` (an :class:`LM` of a :data:`TP_FAMILIES` family) with
-    every parameter read as this rank's shard, in its own type: run under
+    parameter read as this rank's shard, in its own type: run under
     ``act_sharding.activation_rules(mesh)``, each block computes on its
     weight shards over ``model`` (the reference's placements: column
     shards of every weight 512 or more wide), its residual stream sharded
     on ``embed``, its q heads local where they split evenly
     (``attention.local_heads``), k and v whole, and the head and the loss
-    on this rank's vocabulary columns.  No weight matrix is gathered (the
-    block norms' ``d``-entry weights are, with the rows they scale)."""
+    on this rank's vocabulary columns; the experts on their hidden-unit
+    and ``d`` columns (``moe``), the SSM branch on its ``d_inner``
+    channels (``hybrid``), RWKV's time mix on its heads (``ssm``).  No
+    weight matrix is gathered but RWKV's low-rank ``ddl_b`` (the block
+    norms' and lerps' ``d``-entry weights are, with the rows they
+    scale)."""
     return _TPView(model, None)
-
-
-def mesh_view(model: nn.Module, cfg: ArchConfig):
-    """The view a meshed step runs ``model`` on: :func:`tp_view` for the
-    :data:`TP_FAMILIES`, :func:`local_view` for the others."""
-    return tp_view(model) if cfg.family in TP_FAMILIES else local_view(model)
 
 
 def _remat(cfg: ArchConfig, layers_: List[Callable], x: torch.Tensor
@@ -672,7 +675,7 @@ def prefill(model: LM, cfg: ArchConfig, tokens: torch.Tensor, context: int
         state0 = _rwkv_state(cfg, b, tokens.device)
         states = []
         for blk in model.blocks:
-            x, st = rwkv.rwkv_block(blk, rwkv_spec(cfg), x, state0)
+            x, st = _rwkv_block(cfg, blk, x, state0)
             states.append(st)
         cache.update(rwkv_wkv=torch.stack([st.wkv for st in states]),
                      rwkv_tm=torch.stack([st.shift_tm for st in states]),
@@ -713,7 +716,7 @@ def decode_step(model: LM, cfg: ArchConfig, cache: Dict[str, torch.Tensor],
         for l, blk in enumerate(model.blocks):
             st = rwkv.RWKVState(cache["rwkv_wkv"][l], cache["rwkv_tm"][l],
                                 cache["rwkv_cm"][l])
-            x, st = rwkv.rwkv_block(blk, rwkv_spec(cfg), x, st)
+            x, st = _rwkv_block(cfg, blk, x, st)
             states.append(st)
         new_cache.update(rwkv_wkv=torch.stack([st.wkv for st in states]),
                          rwkv_tm=torch.stack([st.shift_tm for st in states]),

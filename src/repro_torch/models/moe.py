@@ -26,6 +26,17 @@ docstring figure of 281 s (a collective term of ``dbrx-132b`` on a
 multi-pod TPU mesh) is the TPU's, not the port's.
 
 The auxiliary load-balancing loss (Switch-style) is returned alongside.
+
+On a tensor-parallel view (``lm.tp_view``) the weights keep the
+reference's placements: the router is replicated and reads whole rows, so
+every rank computes the same logits, dispatch and combine weights (and
+the aux loss, whose gradient :func:`act_sharding.share_model` counts once);
+``w_up``/``w_gate`` give this rank's hidden units of every expert, which
+are gathered over ``model`` before ``w_down``, whose column shard gives
+this rank's ``d`` columns of each expert's output, and the combine runs on
+those columns, so the output lands on the residual's ``embed`` shard.  The
+gathered hidden units are ``E * C`` rows a group, about
+``top_k * capacity_factor`` times the group's tokens.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.dist import act_sharding
 from repro_torch.dist.act_sharding import constrain
 from repro_torch.models import layers
 
@@ -169,14 +181,17 @@ def apply_moe(p: MoE, spec: MoESpec, x: torch.Tensor,
         h = act(torch.einsum("becd,edf->becf", xe, p.w_gate.to(dt))) * up
     else:
         h = act(up)
+    h = act_sharding.gather_model(h, spec.d_ff, "moe ffn")
     ye = constrain(torch.einsum("becf,efd->becd", h, p.w_down.to(dt)),
                    "batch", None, None, None)
-    weighted = (ye * combine_w[..., None].to(dt)).reshape(b, e * cap, d)
-    weighted = torch.cat([weighted, weighted.new_zeros((b, 1, d))], dim=1)
+    do = ye.shape[-1]               # d, or this rank's columns of it
+    weighted = (ye * combine_w[..., None].to(dt)).reshape(b, e * cap, do)
+    weighted = torch.cat([weighted, weighted.new_zeros((b, 1, do))], dim=1)
     # every token's k contributions, summed in f32 in a fixed order
     parts = weighted[rows, slot.reshape(b, s * spec.top_k)].float()
-    parts = parts.reshape(b, s, spec.top_k, d)
+    parts = parts.reshape(b, s, spec.top_k, do)
     out = parts[:, :, 0]
     for j in range(1, spec.top_k):
         out = out + parts[:, :, j]
-    return constrain(out.to(dt), "batch", None, None), aux.mean()
+    return constrain(out.to(dt), "batch", None, None), \
+        act_sharding.share_model(aux.mean())

@@ -18,6 +18,21 @@ norm and the squared-ReLU channel mix follow the RWKV-6 architecture.
 :func:`rwkv_block_lut_tm` puts a folded NeuraLUT-Assemble recurrent cell in
 the WKV slot, and :func:`feature_stream` is the fixed trunk that the
 ``rwkv_mix_reduced`` stream task reads, drawn as the reference draws it.
+
+On a tensor-parallel view (``lm.tp_view``) the layer keeps the reference's
+placements: the residual holds this rank's ``embed`` columns, and the
+norms and the lerps read whole rows (their ``d``-entry weights gathered
+with them).  ``wr``/``wk``/``wv``/``wg`` give this rank's heads, and the
+WKV, its state, ``u`` and the per-head group norm run on them; ``w_b``'s
+column shard gives the local channels' decay (``w0`` its own).  Where the
+heads do not split evenly, r, k, v and the decay are gathered whole and
+every rank runs every head.  ``wo`` and ``cm_wv`` take gathered inputs
+(the heads' output, the channel mix's hidden units), ``cm_wr`` gives
+local columns.  ``ddl_b [r, 5d]`` is the one weight gathered whole: its
+column shard splits across the five lerp deltas, each needed whole, and
+the low-rank factor is far smaller than its ``[B, S, 5d]`` output.  The
+state the layer returns holds the heads it ran (:func:`whole_state`
+gathers it for the cache).
 """
 from __future__ import annotations
 
@@ -29,6 +44,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.dist import act_sharding
 from repro_torch.dist.act_sharding import constrain
 from repro_torch.models import layers
 
@@ -133,19 +149,29 @@ def _ddlerp(p: RWKVLayer, x: torch.Tensor, xx: torch.Tensor
             ) -> Tuple[torch.Tensor, ...]:
     """The data-dependent lerp: the five mixed streams (w, k, v, r, g)."""
     dt = x.dtype
-    z = x + (xx - x) * p.mu_x.to(dt)
-    delta = torch.tanh(z @ p.ddl_a.to(dt)) @ p.ddl_b.to(dt)
+    d = x.shape[-1]
+    z = x + (xx - x) * _vec(p.mu_x, d).to(dt)
+    ddl_b = act_sharding.gather_model(p.ddl_b, 5 * d, "ddl_b")
+    delta = torch.tanh(z @ p.ddl_a.to(dt)) @ ddl_b.to(dt)
     deltas = torch.chunk(delta, 5, dim=-1)
     mus = (p.mu_w, p.mu_k, p.mu_v, p.mu_r, p.mu_g)
-    return tuple(x + (xx - x) * (mu.to(dt) + dl)
+    return tuple(x + (xx - x) * (_vec(mu, d).to(dt) + dl)
                  for mu, dl in zip(mus, deltas))
 
 
+def _vec(t: torch.Tensor, d: int) -> torch.Tensor:
+    """A ``d``-entry weight whole (its shard gathered over ``model``)."""
+    return act_sharding.gather_model(t, d, "norm")
+
+
 def _decay(p: RWKVLayer, xw: torch.Tensor) -> torch.Tensor:
-    """log(w) in (-inf, 0), f32: the data-dependent per-channel decay."""
+    """log(w) in (-inf, 0), f32: the data-dependent per-channel decay (on
+    this rank's channels where ``w_b`` gives them)."""
     dt = xw.dtype
-    z = p.w0.float() + (torch.tanh(xw @ p.w_a.to(dt)) @ p.w_b.to(dt)).float()
-    return -torch.exp(z)
+    d = xw.shape[-1]
+    z = (torch.tanh(xw @ p.w_a.to(dt)) @ p.w_b.to(dt)).float()
+    w0 = p.w0 if z.shape[-1] == d else act_sharding.own_piece(p.w0, d, 0)
+    return -torch.exp(w0.float() + z)
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -193,26 +219,46 @@ def _shifted(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return torch.cat([shift[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _head_split(spec: RWKVSpec, r, k, v, logw):
+    """(r, k, v, logw on the heads this rank runs, those heads): this
+    rank's where the projections hold its columns and the heads split
+    evenly over ``model``, else every head (pieces gathered whole)."""
+    d, hd = spec.d_model, spec.head_dim
+    if r.shape[-1] != d and spec.n_heads % act_sharding.model_group()[1]:
+        r, k, v, logw = (act_sharding.gather_model(t, d, "rkv")
+                         for t in (r, k, v, logw))
+    first = 0 if r.shape[-1] == d else act_sharding.chunk(d)[0] // hd
+    return r, k, v, logw, slice(first, first + r.shape[-1] // hd)
+
+
 def time_mix(p: RWKVLayer, spec: RWKVSpec, x: torch.Tensor,
              shift: torch.Tensor, s0: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x ``[B, S, D]``; ``shift [B, D]`` the last token of the previous
-    segment.  Returns (out ``[B, S, D]``, new shift, final WKV state)."""
+    segment; ``s0`` the WKV state of every head (or of the heads this rank
+    runs).  Returns (out ``[B, S, D]``, or this rank's columns of it; new
+    shift; final WKV state of the heads it ran)."""
     b, s, d = x.shape
-    h, hd = spec.n_heads, spec.head_dim
+    hd = spec.head_dim
     xw, xk, xv, xr, xg = _ddlerp(p, x, _shifted(x, shift))
     dt = x.dtype
-    r = (xr @ p.wr.to(dt)).reshape(b, s, h, hd)
-    k = (xk @ p.wk.to(dt)).reshape(b, s, h, hd)
-    v = (xv @ p.wv.to(dt)).reshape(b, s, h, hd)
+    r, k, v, logw, heads = _head_split(
+        spec, xr @ p.wr.to(dt), xk @ p.wk.to(dt), xv @ p.wv.to(dt),
+        _decay(p, xw))
     g = F.silu(xg @ p.wg.to(dt))
-    logw = _decay(p, xw).reshape(b, s, h, hd)
-    r, k, v, logw = (constrain(t, "batch", None, "heads_tp", None)
+    h = heads.stop - heads.start
+    r, k, v, logw = (constrain(t.reshape(b, s, h, hd),
+                               "batch", None, "heads_tp", None)
                      for t in (r, k, v, logw))
+    if s0.shape[1] != h:
+        s0 = s0[:, heads]
     o, s_fin = wkv_chunked(r.float(), k.float(), v.float(), logw,
-                           p.u.float(), s0, spec.chunk)
-    o = layers.layer_norm(o, p.gn_scale, p.gn_bias)   # per-head group norm
-    o = o.reshape(b, s, d).to(dt) * g
+                           p.u[heads].float(), s0, spec.chunk)
+    o = layers.layer_norm(o, p.gn_scale[heads], p.gn_bias[heads])
+    o = o.reshape(b, s, h * hd).to(dt)
+    if o.shape[-1] != g.shape[-1]:      # every head run, g this rank's
+        o = act_sharding.model_slice(o, -1)
+    o = act_sharding.gather_model(o * g, d, "rwkv heads")
     return o @ p.wo.to(dt), x[:, -1], s_fin
 
 
@@ -221,22 +267,37 @@ def channel_mix(p: RWKVLayer, spec: RWKVSpec, x: torch.Tensor,
     """The squared-ReLU channel mix; returns (out, new shift)."""
     xx = _shifted(x, shift)
     dt = x.dtype
-    xk = x + (xx - x) * p.cm_mu_k.to(dt)
-    xr = x + (xx - x) * p.cm_mu_r.to(dt)
-    kv = torch.square(F.relu(xk @ p.cm_wk.to(dt))) @ p.cm_wv.to(dt)
+    d = x.shape[-1]
+    xk = x + (xx - x) * _vec(p.cm_mu_k, d).to(dt)
+    xr = x + (xx - x) * _vec(p.cm_mu_r, d).to(dt)
+    hid = act_sharding.gather_model(torch.square(F.relu(xk @ p.cm_wk.to(dt))),
+                                    spec.d_ff, "rwkv ffn")
+    kv = hid @ p.cm_wv.to(dt)
     return torch.sigmoid(xr @ p.cm_wr.to(dt)) * kv, x[:, -1]
 
 
 def rwkv_block(p: RWKVLayer, spec: RWKVSpec, x: torch.Tensor,
                state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
-    """One RWKV layer (time mix + channel mix, each behind a LayerNorm)."""
-    h1 = layers.layer_norm(x, p.ln1, p.ln1_b)
+    """One RWKV layer (time mix + channel mix, each behind a LayerNorm).
+    ``x`` is the residual, whole or (on a tensor-parallel view) this
+    rank's columns, and so is the output; the token shifts come out
+    whole, the WKV state on the heads this rank ran."""
+    d = spec.d_model
+    h1 = layers.row_layer_norm(x, p.ln1, p.ln1_b, d)
     att, new_tm, s_fin = time_mix(p, spec, h1, state.shift_tm, state.wkv)
     x = x + att
-    h2 = layers.layer_norm(x, p.ln2, p.ln2_b)
+    h2 = layers.row_layer_norm(x, p.ln2, p.ln2_b, d)
     cm, new_cm = channel_mix(p, spec, h2, state.shift_cm)
     return constrain(x + cm, "batch", "act_seq", None), RWKVState(
         wkv=s_fin, shift_tm=new_tm, shift_cm=new_cm)
+
+
+def whole_state(spec: RWKVSpec, state: RWKVState) -> RWKVState:
+    """``state`` with the WKV state of every head: gathered over ``model``
+    where it holds this rank's (a tensor-parallel step's), as the cache's
+    spec places it."""
+    return state._replace(wkv=act_sharding.gather_model(
+        state.wkv, spec.n_heads, "rwkv state", dim=1))
 
 
 # ---------------------------------------------------------------------------

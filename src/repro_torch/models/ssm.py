@@ -20,6 +20,19 @@ on the TPU) is the TPU's, not the port's.  The depthwise causal conv
     dt    = softplus(x @ W_dt @ W_dt_out + bias);  B, C = x @ W_B, x @ W_C
     h_t   = exp(dt * A) h_{t-1} + dt * B * x_t      (A diagonal, negative)
     y     = C . h + D * x;   out = (y * silu(z)) @ out_proj
+
+On a tensor-parallel view (``lm.tp_view``) the branch runs on this rank's
+``d_inner`` channels (the scan is per channel), the weights under the
+reference's placements: ``in_proj``'s column shard gives this rank's
+columns of ``xs | z``, which one all-to-all re-pairs into its channels of
+each (``act_sharding.pair_halves``); the conv, dt, scan and skip read
+their rows or entries of each per-channel leaf (a sharded one as it is
+placed, a replicated one sliced); the products with the replicated
+``w_dt``, ``w_b`` and ``w_c`` are partial sums over channels, summed over
+``model`` in f32 (``[B, S, 64]`` and ``[B, S, 16]``); ``y`` is gathered
+over ``d_inner`` before ``out_proj``, whose column shard gives this rank's
+``d`` columns.  The state it returns holds this rank's channels
+(:func:`whole_state` gathers it for the cache).
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.dist import act_sharding
 from repro_torch.dist.act_sharding import constrain
 from repro_torch.models import layers
 
@@ -101,7 +115,7 @@ def init_state(spec: SSMSpec, batch: int, dtype=torch.bfloat16,
                          dtype=dtype, device=device))
 
 
-def _causal_conv(p: SSM, spec: SSMSpec, x: torch.Tensor,
+def _causal_conv(p, spec: SSMSpec, x: torch.Tensor,
                  conv_state: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv by shifted adds. x ``[B, S, di]``; returns
@@ -160,22 +174,75 @@ def selective_scan(a_log: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor,
     return h_all[:, :s], carry
 
 
+class _Channels(NamedTuple):
+    """The per-channel leaves of one layer on the channels it runs."""
+
+    conv_w: torch.Tensor     # [k, di']
+    conv_b: torch.Tensor     # [di']
+    w_dt: torch.Tensor       # [di', r]
+    w_dt_out: torch.Tensor   # [r, di']
+    dt_bias: torch.Tensor    # [di']
+    w_b: torch.Tensor        # [di', n]
+    w_c: torch.Tensor        # [di', n]
+    log_a: torch.Tensor      # [di', n]
+    d_skip: torch.Tensor     # [di']
+
+
+def _channels(p: SSM, di: int, local: bool) -> _Channels:
+    """``p``'s per-channel leaves: as they are, or (``local``) on this
+    rank's channels of ``di``."""
+    dims = dict(conv_w=1, conv_b=0, w_dt=0, w_dt_out=1, dt_bias=0, w_b=0,
+                w_c=0, log_a=0, d_skip=0)
+    return _Channels(**{
+        k: act_sharding.own_piece(getattr(p, k), di, d) if local
+        else getattr(p, k) for k, d in dims.items()})
+
+
+def _times(xs: torch.Tensor, w: torch.Tensor, local: bool, what: str
+           ) -> torch.Tensor:
+    """``xs @ w`` in xs's type; with ``local`` channels, each rank's
+    partial sum in f32, summed over ``model``, then rounded once."""
+    if not local:
+        return xs @ w.to(xs.dtype)
+    part = xs.float() @ w.float()
+    return act_sharding.sum_partials(part, what).to(xs.dtype)
+
+
 def apply_ssm(p: SSM, spec: SSMSpec, x: torch.Tensor, state: SSMState
               ) -> Tuple[torch.Tensor, SSMState]:
-    """x ``[B, S, D]`` -> (y ``[B, S, D]``, the new state)."""
+    """x ``[B, S, D]`` -> (y ``[B, S, D]``, the new state).  ``state`` may
+    be whole or hold this rank's channels; the new state holds the
+    channels the branch ran."""
     dt_ = x.dtype
-    xs, z = torch.chunk(x @ p.in_proj.to(dt_), 2, dim=-1)       # [B, S, di]
-    xs, conv_new = _causal_conv(p, spec, xs, state.conv)
+    di = spec.d_inner
+    xs, z = act_sharding.pair_halves(x @ p.in_proj.to(dt_), di,
+                                     "ssm in_proj")              # [B, S, di]
+    local = xs.shape[-1] != di
+    w = _channels(p, di, local)
+    xs, conv_new = _causal_conv(w, spec, xs, act_sharding.own_piece(
+        state.conv, di, 2) if local else state.conv)
     xs = F.silu(xs)
-    dt = F.softplus((xs @ p.w_dt.to(dt_)) @ p.w_dt_out.to(dt_)
-                    + p.dt_bias.to(dt_)).float()                 # [B, S, di]
-    bmat = (xs @ p.w_b.to(dt_)).float()                          # [B, S, n]
-    cmat = (xs @ p.w_c.to(dt_)).float()
-    a = -torch.exp(p.log_a.float())                              # [di, n]
+    dt = F.softplus(_times(xs, w.w_dt, local, "ssm dt") @ w.w_dt_out.to(dt_)
+                    + w.dt_bias.to(dt_)).float()                 # [B, S, di]
+    bmat = _times(xs, w.w_b, local, "ssm b").float()             # [B, S, n]
+    cmat = _times(xs, w.w_c, local, "ssm c").float()
+    a = -torch.exp(w.log_a.float())                              # [di, n]
     a_log = dt[..., None] * a
     bx = (dt * xs.float())[..., None] * bmat[:, :, None, :]
-    h_all, h_fin = selective_scan(a_log, bx, state.h)
+    h0 = act_sharding.own_piece(state.h, di, 1) if local else state.h
+    h_all, h_fin = selective_scan(a_log, bx, h0)
     y = torch.einsum("bsdn,bsn->bsd", h_all, cmat)
-    y = y + p.d_skip.float() * xs.float()
+    y = y + w.d_skip.float() * xs.float()
     y = y.to(dt_) * F.silu(z)
+    y = act_sharding.gather_model(y, di, "ssm channels")
     return y @ p.out_proj.to(dt_), SSMState(h=h_fin, conv=conv_new)
+
+
+def whole_state(spec: SSMSpec, state: SSMState) -> SSMState:
+    """``state`` on every channel: gathered over ``model`` where it holds
+    this rank's (a tensor-parallel step's), as the cache's spec places
+    it."""
+    di = spec.d_inner
+    return SSMState(
+        h=act_sharding.gather_model(state.h, di, "ssm state", dim=1),
+        conv=act_sharding.gather_model(state.conv, di, "ssm state"))

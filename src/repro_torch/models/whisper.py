@@ -17,6 +17,14 @@ it is used (every use, final norms included); the port's serving entry
 points cast the whole model once (:func:`compute_copy`), with the same
 numbers, and :func:`forward_train` reads the f32 weights through those
 casts, so its gradient reaches them.
+
+On a tensor-parallel view (``lm.tp_view``) every block computes on its
+weight shards as the LM's dense blocks do: the residual streams (encoder
+and decoder) hold this rank's ``embed`` columns, the norms read whole
+rows, q keeps this rank's heads where they split, the cross attention's k
+and v are computed on local columns and gathered once a request into the
+cache (whole, as its spec places it), and the untied head gives this
+rank's vocabulary columns.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
+from repro_torch.dist import act_sharding
 from repro_torch.models import attention, ffn, layers, lm
 from repro_torch.models.attention import AttnSpec, KVCache
 from repro_torch.models.config import ArchConfig
@@ -163,8 +172,22 @@ def compute_copy(model: Whisper, cfg: ArchConfig, device=None) -> Whisper:
     return lm.fill(Whisper(cfg, dev, dt), model.get_parameter)
 
 
-def _ln(x: torch.Tensor, blk: nn.Module, name: str) -> torch.Tensor:
-    return layers.layer_norm(x, getattr(blk, name), getattr(blk, name + "_b"))
+def _ln(cfg: ArchConfig, x: torch.Tensor, owner, name: str
+        ) -> torch.Tensor:
+    """LayerNorm ``name`` (and ``name_b``) of ``owner`` over the residual
+    ``x`` as whole rows: on a tensor-parallel view the rows and the norm's
+    ``d``-entry weights are gathered over ``model``."""
+    return layers.row_layer_norm(x, getattr(owner, name),
+                                 getattr(owner, name + "_b"), cfg.d_model)
+
+
+def _residual(model, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """A whole ``[..., D]`` input as the residual stream: this rank's
+    ``embed`` columns where the view's embeddings hold them (the
+    projections back into the stream give those columns)."""
+    if model.embed.shape[-1] != cfg.d_model:
+        return act_sharding.model_slice(x, -1)
+    return x
 
 
 def _layers(cfg: ArchConfig, fns, x: torch.Tensor) -> torch.Tensor:
@@ -183,18 +206,19 @@ def _encode(model: Whisper, cfg: ArchConfig, audio_embed: torch.Tensor
     _, s, d = audio_embed.shape
     x = audio_embed.to(dt) + layers.sinusoidal_positions(
         s, d, device=audio_embed.device).to(dt)[None]
+    x = _residual(model, cfg, x)
     spec = attn_spec(cfg, causal=False)
     positions = range(s)
 
     def layer(blk):
         def fn(x):
             x = x + attention.attention_train(
-                blk.attn, spec, _ln(x, blk, "ln1"), positions, None)
+                blk.attn, spec, _ln(cfg, x, blk, "ln1"), positions, None)
             return x + ffn.apply_ffn(blk.ffn, ffn_spec(cfg),
-                                     _ln(x, blk, "ln2"))
+                                     _ln(cfg, x, blk, "ln2"))
         return fn
     x = _layers(cfg, [layer(blk) for blk in model.enc], x)
-    return layers.layer_norm(x, model.enc_final_norm, model.enc_final_norm_b)
+    return _ln(cfg, x, model, "enc_final_norm")
 
 
 @torch.inference_mode()
@@ -232,9 +256,9 @@ def cross_kv(model: Whisper, cfg: ArchConfig, enc_out: torch.Tensor
 
 def _logits(model: Whisper, cfg: ArchConfig, x_last: torch.Tensor
             ) -> torch.Tensor:
-    h = layers.layer_norm(x_last, model.final_norm, model.final_norm_b)
-    return lm.mask_padded_vocab(
-        cfg, (h @ model.lm_head.to(lm.compute_dtype(cfg))).float())
+    h = _ln(cfg, x_last, model, "final_norm")
+    head = lm.head_matrix(model, cfg).to(lm.compute_dtype(cfg))
+    return lm.mask_padded_vocab(cfg, (h @ head).float())
 
 
 def _decoder(model: Whisper, cfg: ArchConfig, x: torch.Tensor,
@@ -245,12 +269,13 @@ def _decoder(model: Whisper, cfg: ArchConfig, x: torch.Tensor,
     cross_spec = attn_spec(cfg, causal=False)
     extras = []
     for l, blk in enumerate(model.dec):
-        out, extra = self_attn(blk, l, _ln(x, blk, "ln1"))
+        out, extra = self_attn(blk, l, _ln(cfg, x, blk, "ln1"))
         extras.append(extra)
         x = x + out
-        x = x + attention.cross_attention(blk.cross_attn, cross_spec,
-                                          _ln(x, blk, "ln2"), ck[l], cv[l])
-        x = x + ffn.apply_ffn(blk.ffn, ffn_spec(cfg), _ln(x, blk, "ln3"))
+        x = x + attention.cross_attention(
+            blk.cross_attn, cross_spec, _ln(cfg, x, blk, "ln2"), ck[l], cv[l])
+        x = x + ffn.apply_ffn(blk.ffn, ffn_spec(cfg),
+                              _ln(cfg, x, blk, "ln3"))
     return x, extras
 
 
@@ -272,14 +297,16 @@ def forward_train(model: Whisper, cfg: ArchConfig, audio_embed: torch.Tensor,
     def layer(l, blk):
         def fn(x):
             x = x + attention.attention_train(
-                blk.self_attn, spec, _ln(x, blk, "ln1"), positions, None)
+                blk.self_attn, spec, _ln(cfg, x, blk, "ln1"), positions,
+                None)
             x = x + attention.cross_attention(
-                blk.cross_attn, cross_spec, _ln(x, blk, "ln2"), ck[l], cv[l])
+                blk.cross_attn, cross_spec, _ln(cfg, x, blk, "ln2"), ck[l],
+                cv[l])
             return x + ffn.apply_ffn(blk.ffn, ffn_spec(cfg),
-                                     _ln(x, blk, "ln3"))
+                                     _ln(cfg, x, blk, "ln3"))
         return fn
     x = _layers(cfg, [layer(l, blk) for l, blk in enumerate(model.dec)], x)
-    h = layers.layer_norm(x, model.final_norm, model.final_norm_b)
+    h = _ln(cfg, x, model, "final_norm")
     return h, torch.zeros((), device=x.device)
 
 

@@ -67,6 +67,24 @@ def test_checkpoint_async(tmp_path):
     torch.testing.assert_close(restored["w"], torch.full((8,), 2.0))
 
 
+def test_wait_pending_raises_a_writers_error(tmp_path):
+    """``save_async`` onto a step that exists fails on its writer thread
+    (``os.replace`` onto a full directory); ``wait_pending`` raises that
+    error once, and the step written first stays as it was."""
+    d = str(tmp_path)
+    checkpoint.save(d, 4, {"w": torch.full((8,), 1.0)})
+    checkpoint.save_async(d, 4, {"w": torch.full((8,), 5.0)})
+    with pytest.raises(OSError):
+        checkpoint.wait_pending()
+    checkpoint.wait_pending()           # the error is raised once
+    restored, step = checkpoint.restore(d, {"w": torch.zeros(8)})
+    assert step == 4
+    torch.testing.assert_close(restored["w"], torch.full((8,), 1.0))
+    checkpoint.save_async(d, 6, {"w": torch.full((8,), 6.0)})
+    checkpoint.wait_pending()           # a write that succeeds raises none
+    assert checkpoint.latest_step(d) == 6
+
+
 def test_codec_equals_msgpack():
     objs = [{"step": 5, "arrays": [{"key": "0/blocks/attn/wq",
                                     "file": "arr_00000.npy",

@@ -12,9 +12,11 @@ imports no JAX; this test holds its records against the reference:
 
 The same subprocess runs full-size gemma-2b ``train_4k`` at ``(2, 4)``
 (the tensor-parallel design: each rank's flops fall by the factor the
-shapes give) and at ``(2, 1)`` (one rank of ``model``: every layer whole,
-the gather design's flops a rank), and mixtral-8x22b's smoke cell at
-``(2, 4)`` (MoE stays on the gather design).
+shapes give) and at ``(2, 1)`` (one rank of ``model``: every layer whole
+on every rank), mixtral-8x22b's smoke cell at ``(2, 4)``, and one layer of
+each of the other families at full width (``FAMILY_ARCHS``, ``train_4k``)
+at ``(2, 4)`` and ``(2, 1)``: every cell is tensor parallel, and a rank's
+flops and peak fall.
 """
 import json
 import math
@@ -34,6 +36,9 @@ ROOT = Path(__file__).resolve().parents[1]
 # gemma-2b at every shape (its long_500k is skipped); rwkv6-7b, which is
 # sub-quadratic, at long_500k (a batch of 1: the replicated fallback)
 CELLS = [("gemma-2b", s) for s in jsteps.SHAPES] + [("rwkv6-7b", "long_500k")]
+# one full-width layer of each family beside dense and vlm
+FAMILY_ARCHS = ("mixtral-8x22b", "dbrx-132b", "rwkv6-7b", "hymba-1.5b",
+                "whisper-small")
 MESH_SIZES = {"single": {"data": 2, "model": 4},
               "multi": {"pod": 2, "data": 2, "model": 2}}
 
@@ -61,6 +66,18 @@ os.environ["REPRO_MESH_SHAPE"] = "2,4"
 tp["moe"] = dryrun.run_cell("mixtral-8x22b", "train_4k", "single",
                             verbose=False, smoke=True)
 print("TP_RECORDS " + json.dumps(tp))
+import dataclasses
+from repro_torch.configs import lm_archs
+full = lm_archs.get
+lm_archs.get = lambda name: dataclasses.replace(full(name), n_layers=1,
+                                                remat_group=1)
+fam = {{}}
+for arch in {families!r}:
+    for mesh in ("2,4", "2,1"):
+        os.environ["REPRO_MESH_SHAPE"] = mesh
+        fam[arch + " " + mesh] = dryrun.run_cell(arch, "train_4k", "single",
+                                                 verbose=False)
+print("FAMILY_RECORDS " + json.dumps(fam))
 """
 
 
@@ -71,7 +88,8 @@ def output():
     env.update(PYTHONPATH=str(ROOT / "src"), REPRO_MESH_SHAPE="2,4",
                REPRO_MESH_SHAPE_MULTI="2,2,2", REPRO_DRYRUN_DEVICES="8",
                OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", SCRIPT.format(cells=CELLS)],
+    out = subprocess.run([sys.executable, "-c", SCRIPT.format(
+        cells=CELLS, families=FAMILY_ARCHS)],
                          env=env, cwd=str(ROOT), capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -91,6 +109,11 @@ def records(output):
 @pytest.fixture(scope="module")
 def tp_records(output):
     return _line(output, "TP_RECORDS")
+
+
+@pytest.fixture(scope="module")
+def family_records(output):
+    return _line(output, "FAMILY_RECORDS")
 
 
 def _ref_param_bytes(arch, shape_name, sizes):
@@ -208,6 +231,46 @@ def test_dense_cell_computes_on_its_shards(tp_records):
 
 
 def test_moe_cell_stays_on_the_gather_design(tp_records):
+    """The MoE smoke cell at ``(2, 4)`` is tensor parallel, as every
+    family is (there is no gather design): at smoke width no
+    weight is split, so q is whole, and only the loss's vocabulary
+    reductions cross ``model``.  (The name is kept from when the MoE
+    family ran on the gather design; the check is now its opposite.)"""
     rec = tp_records["moe"]
-    assert rec["status"] == "ok" and rec["design"] == "gather"
-    assert rec["tp_collectives"] == {}
+    assert rec["status"] == "ok" and rec["design"] == "tp (q whole)"
+    assert set(rec["tp_collectives"]) == {"vocab all-reduce"}
+
+
+def test_no_cell_is_on_a_gather_design(records, tp_records, family_records):
+    recs = records + list(tp_records.values()) + \
+        list(family_records.values())
+    assert {r["design"] for r in recs if r["status"] == "ok"} <= {
+        "tp", "tp (q whole)"}
+
+
+# flops a rank at (2, 1) over those at (2, 4), one full-width layer: every
+# product of the layer, the head and the loss splits over the 4 ranks of
+# ``model`` but the MoE router, RWKV's low-rank lerp and decay factors and
+# hymba's attention core (25 heads: q whole)
+FAMILY_FLOPS_FALL = {"mixtral-8x22b": 3.99, "dbrx-132b": 3.99,
+                     "rwkv6-7b": 3.9, "hymba-1.5b": 2.7,
+                     "whisper-small": 3.99}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_cells_compute_on_their_shards(family_records, arch):
+    tp, whole = family_records[arch + " 2,4"], family_records[arch + " 2,1"]
+    assert tp["status"] == whole["status"] == "ok", (tp, whole)
+    want = "tp (q whole)" if arch == "hymba-1.5b" else "tp"
+    assert tp["design"] == want and whole["design"] == "tp"
+    fall = whole["cost_analysis"]["flops"] / tp["cost_analysis"]["flops"]
+    assert FAMILY_FLOPS_FALL[arch] <= fall <= 4.0, fall
+    assert tp["memory_analysis"]["peak_bytes_per_rank"] < \
+        whole["memory_analysis"]["peak_bytes_per_rank"]
+    assert tp["tp_collectives"] and whole["tp_collectives"] == {}
+    if arch in ("mixtral-8x22b", "dbrx-132b"):
+        assert tp["tp_collectives"]["moe ffn all-gather"] > 0
+    if arch == "hymba-1.5b":
+        assert tp["tp_collectives"]["ssm in_proj all-to-all"] > 0
+    if arch == "rwkv6-7b":
+        assert tp["tp_collectives"]["ddl_b all-gather"] > 0

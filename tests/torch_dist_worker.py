@@ -272,12 +272,16 @@ TP_SERVE_MESHES = ((1, 2), (1, 4))
 TP_PROMPT, TP_CONTEXT, TP_DECODE = 12, 24, 4
 
 
-def tp_config(name: str):
-    """The port's config of ``TP_CONFIGS[name]``."""
+def _widened(arch: str, extra: dict):
+    """``arch``'s smoke config at ``WIDE`` widths, then ``extra``."""
     import dataclasses
     from repro_torch.configs import lm_archs
-    arch, extra = TP_CONFIGS[name]
-    return dataclasses.replace(lm_archs.smoke(arch), **WIDE, **extra)
+    return dataclasses.replace(lm_archs.smoke(arch), **{**WIDE, **extra})
+
+
+def tp_config(name: str):
+    """The port's config of ``TP_CONFIGS[name]``."""
+    return _widened(*TP_CONFIGS[name])
 
 
 def tp_prompts(cfg):
@@ -288,38 +292,6 @@ def tp_prompts(cfg):
                                           (MESH_BATCH, TP_PROMPT))),
             torch.from_numpy(rng.integers(0, cfg.vocab,
                                           (TP_DECODE, MESH_BATCH, 1))))
-
-
-def _tp_serve(cfg, model, mesh):
-    """Prefill (last-token logits and cache) and ``TP_DECODE`` decode
-    steps' logits through ``build_cell``'s serving steps on ``mesh``
-    (``model`` unmeshed when ``mesh`` is None), whole tensors."""
-    from repro_torch.dist import sharding as shd
-    from repro_torch.launch import steps
-    from repro_torch.models import lm
-    prompt, toks = tp_prompts(cfg)
-    if mesh is None:
-        logits, cache = lm.prefill(model, cfg, prompt, TP_CONTEXT)
-        out = {"prefill": logits, "cache": dict(cache), "decode": []}
-        for t in toks:
-            logits, cache = lm.decode_step(model, cfg, cache, t)
-            out["decode"].append(logits)
-        return out
-    dp = shd.dp_axes(mesh)
-    pre, _ = steps.build_cell(cfg, steps.ShapeSpec(
-        "tp_prefill", TP_CONTEXT, MESH_BATCH, "prefill"), mesh)
-    dec, _ = steps.build_cell(cfg, steps.ShapeSpec(
-        "tp_decode", TP_CONTEXT, MESH_BATCH, "decode"), mesh)
-    logits, cache = pre(model, shd.distribute(prompt, mesh,
-                                              shd.Spec(dp, None)))
-    out = {"prefill": shd.full(logits),
-           "cache": {k: shd.full(v) for k, v in cache.items()},
-           "decode": [], "logits_placements": str(logits.placements)}
-    for t in toks:
-        logits, cache = dec(model, cache, shd.distribute(
-            t, mesh, shd.Spec(dp, None)))
-        out["decode"].append(shd.full(logits))
-    return out
 
 
 class _GatherLog:
@@ -340,34 +312,11 @@ class _GatherLog:
 
 
 def _tp_block(cfg, model, mesh):
-    """Block 0's training forward and backward on this rank (``mesh``
-    None: the whole model): (flops, the all-gathers' output shapes), on
-    the tensor-parallel view, and on the gather view for contrast."""
-    from torch.utils.flop_counter import FlopCounterMode
-    from repro_torch.dist import act_sharding
-    from repro_torch.models import lm
-    x = torch.from_numpy(np.random.default_rng(3).normal(
-        size=(MESH_BATCH, MESH_SEQ, cfg.d_model)).astype(np.float32))
-    freqs = lm._freqs(cfg, "cpu")
-    out = {}
-    views = [("whole", lambda m: m)] if mesh is None else \
-        [("tp", lm.tp_view), ("gather", lm.local_view)]
-    for name, view in views:
-        blk = lm.cast_view(view(lm.trainable(model)).blocks[0],
-                           torch.float32)
-        log = _GatherLog()
-        flops = FlopCounterMode(display=False)
-        rules = act_sharding.activation_rules(mesh) if mesh is not None \
-            else contextlib.nullcontext()
-        with rules:     # the tensor-parallel residual: this rank's columns
-            xs = act_sharding.model_slice(x, -1) if name == "tp" else x
-            xs = xs.clone().requires_grad_(True)
-            with flops, log.mode, torch.enable_grad():
-                y, _ = lm._block_train(cfg, blk, xs, range(MESH_SEQ), freqs)
-                y.sum().backward()
-        out[name] = {"flops": flops.get_total_flops(),
-                     "gathers": log.shapes}
-    return out
+    """Block 0's training forward and backward on this rank at
+    ``MESH_BATCH x MESH_SEQ`` (:func:`_block_run`), keyed by the view:
+    ``whole`` (``mesh`` None) or ``tp``."""
+    return {"whole" if mesh is None else "tp":
+            _block_run(cfg, model, mesh, MESH_BATCH, MESH_SEQ)}
 
 
 def job_tensor_parallel(rank, world, tmp):
@@ -397,6 +346,259 @@ def job_tensor_parallel(rank, world, tmp):
             if shape == (1, 4):
                 out[(name, shape, "block")] = _tp_block(cfg, model, mesh)
     out["eager_gather"] = _eager_gather_check(world)
+    dist.barrier()
+    return out
+
+
+# The tensor-parallel check of the other families (f32, ``WIDE`` widths,
+# each split by the rules): "mixtral" (4 experts, top 2; 32 heads of 16 on
+# 8 KV heads; at 16 tokens a group every expert holds every token), "dbrx"
+# (6 experts, top 4, capacity factor 0.5: 8 slots an expert, so tokens are
+# dropped), "hymba" (the hybrid: d_model 521,
+# so d_inner 1,042, whose chunks of xs | z on 4 ranks cut a rank's
+# channels; 33 heads, so q whole), "rwkv6" (10 heads of 52: local at 2
+# ranks, whole at 4, where the heads do not split) and "whisper" (32 heads
+# of 16, encoder and decoder).
+TP_FAMILY_CONFIGS = {
+    "mixtral": ("mixtral-8x22b", dict(n_heads=32, n_kv_heads=8)),
+    "dbrx": ("dbrx-132b", dict(n_heads=32, n_kv_heads=8, n_experts=6,
+                               top_k=4, capacity_factor=0.5)),
+    "hymba": ("hymba-1.5b", dict(d_model=521, n_heads=33, n_kv_heads=3)),
+    "rwkv6": ("rwkv6-7b", dict(n_heads=10)),
+    "whisper": ("whisper-small", dict(n_heads=32, n_kv_heads=32)),
+}
+# block 0's check runs on fewer tokens, so that no activation it gathers is
+# as large as a block weight
+TP_BLOCK_BATCH, TP_BLOCK_SEQ = 2, 8
+
+
+def family_config(name: str):
+    """The port's config of ``TP_FAMILY_CONFIGS[name]``."""
+    return _widened(*TP_FAMILY_CONFIGS[name])
+
+
+def audio_embed(cfg, batch: int, frames: int, seed: int) -> torch.Tensor:
+    """Whisper's stub frontend output ``[batch, frames, d_model]``."""
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(batch, frames, cfg.d_model)).astype(np.float32))
+
+
+def family_batches(cfg):
+    """The training batches of a family config (whisper's with audio)."""
+    out = train_batches(cfg, MESH_STEPS, MESH_BATCH, MESH_SEQ)
+    if cfg.is_enc_dec:
+        for i, b in enumerate(out):
+            b["audio_embed"] = audio_embed(cfg, MESH_BATCH, MESH_SEQ, 20 + i)
+    return out
+
+
+class DispatchLog:
+    """Inside the context, every MoE routing's dispatch table and token
+    slots (``moe._group_dispatch``'s first and third outputs)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.orig, self.log = moe._group_dispatch, []
+
+        def logged(*args):
+            out = self.orig(*args)
+            self.log.append((out[0].detach().clone(),
+                             out[2].detach().clone()))
+            return out
+        moe._group_dispatch = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._group_dispatch = self.orig
+
+
+def _tp_serve(cfg, model, mesh):
+    """Prefill (last-token logits and cache) and ``TP_DECODE`` decode
+    steps' logits through ``build_cell``'s serving steps on ``mesh``
+    (``model`` unmeshed when ``mesh`` is None), whole tensors; whisper
+    encodes ``enc_context`` frames first."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import lm, whisper
+    prompt, toks = tp_prompts(cfg)
+    audio = (audio_embed(cfg, MESH_BATCH, cfg.enc_context, 31),) \
+        if cfg.is_enc_dec else ()
+    mod = whisper if cfg.is_enc_dec else lm
+    if mesh is None:
+        if cfg.is_enc_dec:
+            logits, cache = whisper.prefill(model, cfg, audio[0], prompt,
+                                            TP_CONTEXT)
+        else:
+            logits, cache = lm.prefill(model, cfg, prompt, TP_CONTEXT)
+        out = {"prefill": logits, "cache": dict(cache), "decode": []}
+        for t in toks:
+            logits, cache = mod.decode_step(model, cfg, cache, t)
+            out["decode"].append(logits)
+        return out
+    dp = shd.dp_axes(mesh)
+    pre, _ = steps.build_cell(cfg, steps.ShapeSpec(
+        "tp_prefill", TP_CONTEXT, MESH_BATCH, "prefill"), mesh)
+    dec, _ = steps.build_cell(cfg, steps.ShapeSpec(
+        "tp_decode", TP_CONTEXT, MESH_BATCH, "decode"), mesh)
+    args = [shd.distribute(prompt, mesh, shd.Spec(dp, None))]
+    args += [shd.distribute(a, mesh, shd.Spec(dp, None, None))
+             for a in audio]
+    logits, cache = pre(model, *args)
+    out = {"prefill": shd.full(logits),
+           "cache": {k: shd.full(v) for k, v in cache.items()},
+           "decode": [], "logits_placements": str(logits.placements)}
+    for t in toks:
+        logits, cache = dec(model, cache, shd.distribute(
+            t, mesh, shd.Spec(dp, None)))
+        out["decode"].append(shd.full(logits))
+    return out
+
+
+def _family_layer(cfg, blk, b: int, s: int):
+    """Block 0's training forward as ``fn(x) -> y`` with any extra inputs
+    it takes (whisper's decoder block: the cross k and v, leaves that take
+    a gradient as the encoder's output would)."""
+    from repro_torch.models import attention, ffn, lm, rwkv, whisper
+    if cfg.family == "ssm":
+        spec = lm.rwkv_spec(cfg)
+        state = rwkv.init_state(spec, b, torch.float32, "cpu")
+        return lambda x: rwkv.rwkv_block(blk, spec, x, state)[0], ()
+    if cfg.is_enc_dec:
+        g = torch.Generator().manual_seed(6)
+        shape = (b, cfg.n_kv_heads, cfg.enc_context, cfg.head_dim_)
+        ck, cv = (torch.randn(shape, generator=g).requires_grad_(True)
+                  for _ in range(2))
+        spec = whisper.attn_spec(cfg, causal=True)
+        cross = whisper.attn_spec(cfg, causal=False)
+
+        def fn(x):
+            x = x + attention.attention_train(
+                blk.self_attn, spec, whisper._ln(cfg, x, blk, "ln1"),
+                range(s), None)
+            x = x + attention.cross_attention(
+                blk.cross_attn, cross, whisper._ln(cfg, x, blk, "ln2"),
+                ck, cv)
+            return x + ffn.apply_ffn(blk.ffn, whisper.ffn_spec(cfg),
+                                     whisper._ln(cfg, x, blk, "ln3"))
+        return fn, (ck, cv)
+    freqs = lm._freqs(cfg, "cpu")
+    return lambda x: lm._block_train(cfg, blk, x, range(s), freqs)[0], ()
+
+
+def _block_run(cfg, model, mesh, b: int, s: int):
+    """Block 0's training forward and backward on this rank on ``b x s``
+    tokens (``mesh`` None: the whole model, else its tensor-parallel
+    view): flops, the all-gathers' output shapes and the tensor-parallel
+    traffic by purpose."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.dist import act_sharding
+    from repro_torch.models import lm
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(b, s, cfg.d_model)).astype(np.float32))
+    view = lm.tp_view(lm.trainable(model)) if mesh is not None else \
+        lm.trainable(model)
+    blocks = view.dec if cfg.is_enc_dec else view.blocks
+    blk = lm.cast_view(blocks[0], torch.float32)
+    fn, _ = _family_layer(cfg, blk, b, s)
+    log = _GatherLog()
+    flops = FlopCounterMode(display=False)
+    rules = act_sharding.activation_rules(mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    with rules, act_sharding.traffic() as traffic:
+        xs = act_sharding.model_slice(x, -1) if mesh is not None else x
+        xs = xs.clone().requires_grad_(True)
+        with flops, log.mode, torch.enable_grad():
+            fn(xs).sum().backward()
+    return {"flops": flops.get_total_flops(), "gathers": log.shapes,
+            "traffic": dict(traffic)}
+
+
+def _family_block(cfg, model, mesh):
+    """:func:`_block_run` at ``TP_BLOCK_BATCH x TP_BLOCK_SEQ``."""
+    return _block_run(cfg, model, mesh, TP_BLOCK_BATCH, TP_BLOCK_SEQ)
+
+
+def _updates(cfg, run):
+    """Each parameter's largest change over ``run`` (from the seed-0
+    weights), in ``lm.leaves`` order."""
+    from repro_torch.launch import steps
+    init = steps.train_leaves(steps.init_fn(cfg)(
+        torch.Generator().manual_seed(0), "cpu"))
+    return [float((p - q.detach()).abs().max())
+            for p, q in zip(run["params"], init)]
+
+
+def _against(run, ref):
+    """A meshed run's losses, grad norms and sharded leaves, and each
+    parameter's (max |diff| from the unmeshed run ``ref``'s, ``ref``'s
+    largest entry, ``ref``'s largest change over its steps) in
+    ``lm.leaves`` order (the parameters themselves stay on the rank:
+    whisper's alone are 100 MB a run)."""
+    return {"losses": run["losses"], "grad_norms": run["grad_norms"],
+            "sharded": run["sharded"],
+            "param_err": [(float((p - q).abs().max()), float(q.abs().max()),
+                           u) for p, q, u in zip(run["params"],
+                                                 ref["params"],
+                                                 ref["updates"])]}
+
+
+def _k5_layout_log():
+    """Wrap ``ops.flash_attention`` so that every call's operand layout
+    is kept when K5's card check (``flash_attention._check``: the head dim
+    contiguous) would refuse it; returns the list."""
+    from repro_torch.kernels import ops
+    refused, orig = [], ops.flash_attention
+
+    def checked(q, k, v, **kw):
+        if any(t.stride(-1) != 1 for t in (q, k, v)):
+            refused.append(tuple((tuple(t.shape), t.stride())
+                                 for t in (q, k, v)))
+        return orig(q, k, v, **kw)
+    ops.flash_attention = checked
+    return refused
+
+
+def job_tensor_parallel_families(rank, world, tmp):
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import steps
+    out = {"k5_refused": _k5_layout_log()}
+    for name in TP_FAMILY_CONFIGS:
+        cfg = family_config(name)
+        batches = family_batches(cfg)
+        # every rank runs the unmeshed steps (while rank 0 would anyway)
+        with DispatchLog() as dlog:
+            ref = _mesh_run(cfg, None, batches)
+        ref["updates"] = _updates(cfg, ref)
+        out[(name, None, "dispatch")] = dlog.log
+        for shape in TP_MESHES:
+            mesh = _submesh(world, shape)
+            with DispatchLog() as dlog:
+                out[(name, shape)] = _against(_mesh_run(cfg, mesh, batches),
+                                              ref)
+            out[(name, shape, "design")] = steps.design(cfg, mesh)
+            out[(name, shape, "dispatch")] = dlog.log
+        if rank == 0:
+            out[(name, None)] = {k: ref[k] for k in
+                                 ("losses", "grad_norms", "params",
+                                  "updates")}
+            model = steps.init_fn(cfg)(torch.Generator().manual_seed(0),
+                                       "cpu")
+            with DispatchLog() as dlog:
+                out[(name, None, "serve")] = _tp_serve(cfg, model, None)
+            out[(name, None, "serve dispatch")] = dlog.log
+            out[(name, None, "block")] = _family_block(cfg, model, None)
+        del ref
+        for shape in TP_SERVE_MESHES:
+            mesh = _submesh(world, shape)
+            model = shd.distribute_params(steps.init_fn(cfg)(
+                torch.Generator().manual_seed(0), "cpu"), mesh)
+            with DispatchLog() as dlog:
+                out[(name, shape, "serve")] = _tp_serve(cfg, model, mesh)
+            out[(name, shape, "serve dispatch")] = dlog.log
+            if shape == (1, 4):
+                out[(name, shape, "block")] = _family_block(cfg, model, mesh)
     dist.barrier()
     return out
 
