@@ -97,7 +97,16 @@ shapes, and drives both main paths:
   2,048 rows, each distinct launch of the grid (K1, or K2 on one cluster
   plan) timed once and counted;
   the measured plans saved, reloaded with ``source == "measured"`` and
-  served against ``take`` on a held-out batch.
+  served against ``take`` on a held-out batch;
+* the paper's tables (slice 17): Table IV of
+  ``benchmarks/torch_paper_tables.py`` at the reference's budget (four
+  trainings on ``nid``: the Assemble flow and the LogicNets-, NeuraLUT-
+  and PolyLUT-style baselines, K4 at their layouts, the PolyLUT monomials
+  among them), every folded artifact served on ``fused`` (K1) and
+  ``pallas`` (K3) against ``take`` and a CPU load, the ``hwcost`` columns
+  of Tables III and IV and Fig. 2 against the reference's record
+  (``experiments/TORCH_paper_tables_reference.json``), every K4 layout
+  held against the plain version and the reference kernel.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
@@ -106,8 +115,8 @@ standard output are a JSON object with every kernel's launches, error and
 times, the card's ``name, power.limit``, then ``{"ok": true, "device":
 {...}}``; a ``{"fleet": ...}``, a ``{"search": ...}``, an
 ``{"lm_families": ...}``, an ``{"lm_train": ...}``, an
-``{"lm_dist": ...}`` and an ``{"autotune": ...}`` line come before
-them.  A full report goes to ``build/chip_smoke/report.json``.
+``{"lm_dist": ...}``, an ``{"autotune": ...}`` and a ``{"paper_tables":
+...}`` line come before them.  A full report goes to ``build/chip_smoke/report.json``.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -2158,6 +2167,14 @@ POP_CPU_BATCH = 64           # the card-vs-CPU population step's batch
 # the nid search's best frontier accuracy must pass this (the classes are
 # balanced, so chance is about 0.5; the card's runs gave 0.7686)
 SEARCH_NID_ACCURACY = 0.70
+# the nid search's depth, cut from the default budget (16 candidates, rungs
+# 30 / 80, 4 promotions topped up by at most 3) to pay for phase 15;
+# promotions keep the default 60 + 150 steps, and every mechanism stays: two
+# rungs, promotions, 2 slices, calibration, the frontier on K1 and K3, and
+# the frontier top-up: ``min_frontier`` keeps its default 3, which two
+# promotions cannot reach, so the top-up always promotes its one extra
+SEARCH_NID_CUT = dict(n_candidates=8, rungs=(15, 40), promote=2,
+                      max_promote_extra=1)
 
 
 def _stages(cfg) -> int:
@@ -2532,13 +2549,15 @@ def _non_dominated(front) -> bool:
 
 def search_nid(dev, smi: str, seed: int, art_dir: Path) -> dict:
     """Phase 10, part 2: ``Toolflow.search("nid", ...)``, the full Table-II
-    ``nid`` with the default budget on the card (sliced in 2, run
-    sequentially).  The frontier must be
+    ``nid`` on the card with the default budget cut in depth
+    (``SEARCH_NID_CUT``; sliced in 2, run sequentially).  The frontier
+    must be
     non-empty, ranked and non-dominated; every frontier artifact, saved and
     loaded, must answer bit-identically on ``take``, ``fused`` and
     ``pallas`` on the card and from a CPU load, with the fused kernel
     launched once a block and K3 once a layer a block.  The best frontier
-    accuracy must pass ``SEARCH_NID_ACCURACY``.  Every K4 operand layout
+    accuracy must pass ``SEARCH_NID_ACCURACY``, and the frontier top-up
+    must promote beyond ``promote``.  Every K4 operand layout
     the search launched (population rungs on the per-unit route, the
     promotions' dense, per-unit and dense-gradient routes) is kept by a
     :class:`K4Recorder` and held afterwards by :func:`hold_k4_record`."""
@@ -2550,7 +2569,7 @@ def search_nid(dev, smi: str, seed: int, art_dir: Path) -> dict:
     from repro_torch.search import SearchBudget
 
     budget = dataclasses.replace(SearchBudget(), seed=seed,
-                                 population_slices=2)
+                                 population_slices=2, **SEARCH_NID_CUT)
     torch.cuda.synchronize()
     build.reset_counters()
     t0 = time.perf_counter()
@@ -2568,6 +2587,9 @@ def search_nid(dev, smi: str, seed: int, art_dir: Path) -> dict:
     if not accs[0] > SEARCH_NID_ACCURACY:
         fail(f"nid search: best frontier accuracy {accs[0]} <= "
              f"{SEARCH_NID_ACCURACY}")
+    if len(res.promoted) <= budget.promote:
+        fail(f"nid search: {len(res.promoted)} promotions, the frontier "
+             f"top-up promoted none beyond {budget.promote}")
     k4_routes = ("unit_affine_dense", "unit_affine_units", "unit_affine_dx")
     if counts.get("unit_affine_reference", 0) or \
             not all(counts.get(k, 0) for k in k4_routes):
@@ -2634,10 +2656,12 @@ def search_nid(dev, smi: str, seed: int, art_dir: Path) -> dict:
            "rejected": len(res.rejected), "evaluated": len(res.evaluated),
            "promoted": [p.name for p in res.promoted], "frontier": points,
            "served_rows": SEARCH_ROWS, "block": SEARCH_BLOCK}
-    print(f"nid search (default budget, 2 slices) on the card: "
+    print(f"nid search (default budget cut to {SEARCH_NID_CUT}, 2 "
+          f"slices) on the card: "
           f"{wall:.1f} s; rungs {[round(s, 2) for s in st['rungs']]} s, "
           f"promotions {sum(st.get('promotions', [])):.1f} s "
-          f"({len(res.promoted)}), calibration "
+          f"({budget.promote} + {len(res.promoted) - budget.promote} "
+          f"top-up), calibration "
           f"{sum(st.get('calibration', [])):.2f} s; K4 launches "
           f"{ {k: v for k, v in counts.items() if k.startswith('unit')} }; "
           f"every K4 layout launched ({held}) equal to the plain version "
@@ -5279,6 +5303,213 @@ def autotune_phase(dev, smi: str, seed: int, art_dir: Path) -> dict:
     return out
 
 
+PAPER_REFERENCE = ROOT / "experiments" / "TORCH_paper_tables_reference.json"
+PAPER_SEED = 0               # the seed the reference trains Table IV at
+
+
+def _k4_work(kind, args) -> tuple:
+    """(route, shape, plain fn, kernel fn, library fn, bytes, flops,
+    launches a call) of one recorded K4 call: the forward routes against
+    one ``torch.baddbmm`` (shared rows broadcast over the units), the
+    dense gradient against one ``einsum``."""
+    import torch
+    from repro_torch.kernels import subnet_mlp
+    if kind[0] == "affine":
+        x, w, b = args
+        act = kind[1]
+        route = f"unit_affine_{subnet_mlp.route(x)}"
+        bsz, (u, din, dout) = x.shape[0], w.shape
+        xb = x if x.dim() == 3 else x[:, None, :].expand(bsz, u, din)
+        bias = b if b is not None else torch.zeros(
+            (u, dout), dtype=w.dtype, device=w.device)
+        x_elems = bsz * din if route == "unit_affine_dense" else xb.numel()
+        byts = (x_elems + w.numel() + (0 if b is None else b.numel())
+                + bsz * u * dout) * x.element_size()
+        return (route, [bsz, u, din, dout],
+                lambda: subnet_mlp.unit_affine_plain(x, w, b, activate=act),
+                lambda: subnet_mlp.unit_affine_cuda(x, w, b, activate=act),
+                lambda: torch.baddbmm(bias[:, None, :], xb.transpose(0, 1),
+                                      w),
+                byts, 2 * bsz * u * din * dout, 1)
+    dy, w = args
+    bsz, u, dout = dy.shape
+    din = w.shape[1]
+    return ("unit_affine_dx", [bsz, u, din, dout],
+            lambda: subnet_mlp.unit_affine_dx_plain(dy, w),
+            lambda: subnet_mlp.unit_affine_dx_cuda(dy, w),
+            lambda: torch.einsum("bun,ukn->bk", dy, w),
+            (dy.numel() + w.numel() + bsz * din) * dy.element_size(),
+            2 * bsz * u * din * dout, 2)
+
+
+def paper_k4_rows(models: list, smi: str) -> list:
+    """Kernel-line rows of Table IV's K4 layouts: for each model its
+    largest per-unit layout at the training batch, and for
+    ``neuralut_assemble`` its largest dense and dense-gradient layouts,
+    each timed beside its plain version,
+    its bound and its library call; ``launches`` is the model's count of
+    that route over its training and fold."""
+    import torch
+    picks = []
+    for m in models:
+        by_route: dict = {}
+        for kind, args, _ in m["calls"].values():
+            work = _k4_work(kind, args)
+            if work[0] != "unit_affine_units" and \
+                    m["model"] != "neuralut_assemble":
+                continue
+            # a training step's layout (the batch of 256) before the
+            # evaluations' larger ones
+            rank = (work[1][0] == 256, work[6])
+            if work[0] not in by_route or rank > by_route[work[0]][0]:
+                by_route[work[0]] = (rank, work)
+        picks += [(m, by_route[r][1]) for r in K4_ROUTES[1:]
+                  if r in by_route]
+    rows = []
+    for m, (route, shape, plain, kern, lib, byts, flops, per) in picks:
+        torch.cuda.synchronize()
+        err = float((kern() - plain()).abs().max())
+        bound_ms, bound_by = bound(byts, flops, F32_FLOPS_PER_S)
+        lib_dev, lib_kernels = traced_all_ms(lib)
+        row = {"name": route, "path": "paper tables/table4",
+               "task": f"{m['model']} {route[12:]} {shape}",
+               "batch": shape[0], "shape": shape,
+               "launches": m["k4"].get(route, 0), "max_abs_err": err,
+               "ms": per_call_ms(kern, calls=20),
+               "device_ms": traced_ms(kern, K4_KERNELS[route], 10, per),
+               "plain_ms": per_call_ms(plain, calls=10),
+               "library_ms": per_call_ms(lib, calls=20),
+               "library_device_ms": lib_dev, "library_kernels": lib_kernels,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        rows.append(row)
+        print(f"time {route} (table4 {row['task']}): kernel {row['ms']:.4f}"
+              f" ms (device {row['device_ms']} ms), plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+              f"ms (device {lib_dev} ms), bound {bound_ms:.6f} ms "
+              f"({bound_by}), {row['launches']} launches, max |diff| {err}"
+              f" [{smi}]", flush=True)
+    return rows
+
+
+def paper_tables_phase(dev, smi: str, seed: int) -> dict:
+    """Slice 17's main path: the paper's Table IV through
+    ``benchmarks/torch_paper_tables.py`` on the card at the reference's
+    budget (four trainings on ``nid``: NeuraLUT-Assemble's full flow and
+    the LogicNets-, NeuraLUT- and PolyLUT-style baselines on random
+    mappings, K4's dense, per-unit and dense-gradient routes, the PolyLUT
+    monomials feeding K4).  Every folded artifact is served through
+    ``LUTEngine`` on ``fused`` (K1 once a block) and ``pallas`` (K3 once a
+    layer a block) against ``take`` and a CPU load, its served accuracy
+    equal to the folded one, every fold exact.  The ``hwcost`` columns of
+    Table IV, Table III and Fig. 2 must equal the reference's record
+    (``experiments/TORCH_paper_tables_reference.json``, read as JSON).
+    Every K4 layout the trainings launched is kept by a
+    :class:`K4Recorder` and held by :func:`hold_k4_record`."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import torch_paper_tables as pt
+
+    if not PAPER_REFERENCE.exists():
+        fail(f"paper tables: no reference record at {PAPER_REFERENCE}")
+    ref = json.loads(PAPER_REFERENCE.read_text())
+    t0 = time.perf_counter()
+    for table, rows in (("table3", pt.table3()),
+                        ("fig2", pt.fig2_assembly_scaling())):
+        if rows != ref[table]["rows"]:
+            fail(f"paper {table}: {rows} != the reference's "
+                 f"{ref[table]['rows']}")
+    models, served_nets = [], []
+    torch.cuda.synchronize()
+    build.reset_counters()
+    with K4Recorder() as rec:
+        def serve(net, data, folded_acc):
+            # this model's training and fold launched everything counted
+            # since the last reset; serving counts its own launches
+            torch.cuda.synchronize()
+            models.append({"k4": {k: v for k, v in
+                                  build.launch_counts().items()
+                                  if k.startswith("unit_affine")},
+                           "calls": rec.calls})
+            rec.calls = {}
+            out = pt.serve_folded(net, data, folded_acc)
+            served_nets.append(net)
+            build.reset_counters()
+            return out
+
+        t_train = time.perf_counter()
+        rows = pt.table4(PAPER_SEED, device=dev, serve=serve)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t_train
+    want = {r["model"]: r for r in ref["table4"]["per_seed"][
+        str(PAPER_SEED)]}
+    k4 = {k: sum(m["k4"].get(k, 0) for m in models) for k in K4_ROUTES}
+    lut = {k: sum(r["served"][b]["launches"][k] for r in rows
+                  for b in ("fused", "pallas")) for k in LUT_KERNELS}
+    for r, m in zip(rows, models):
+        m["model"] = r["model"]
+        s = r["served"]
+        if not (r["fold_exact"] and s["ok"]):
+            fail(f"paper table4 {r['model']}: fold exact {r['fold_exact']}"
+                 f", served {s}")
+        for c in pt.HWCOST_COLS["table4"]:
+            if r[c] != want[r["model"]][c]:
+                fail(f"paper table4 {r['model']}: {c} {r[c]} != the "
+                     f"reference's {want[r['model']][c]}")
+        if m["k4"].get("unit_affine_reference", 0) or \
+                not m["k4"].get("unit_affine_units", 0):
+            fail(f"paper table4 {r['model']}: K4 launches {m['k4']}")
+    if not all(k4[k] for k in K4_ROUTES[1:]):
+        fail(f"paper table4: K4 launches by route {k4}")
+    t_hold = time.perf_counter()
+    held = {}
+    for m in models:
+        held[m["model"]] = hold_k4_record(
+            types.SimpleNamespace(calls=m["calls"]),
+            f"paper table4 {m['model']}")
+    t_hold = time.perf_counter() - t_hold
+    if sorted(held["neuralut_assemble"]) != sorted(K4_ROUTES[1:]):
+        fail(f"paper table4: recorded K4 routes {held}")
+    # K1 and K3 at a block of the Assemble artifact (its fused plan is K1)
+    ours = next(r for r in rows if r["model"] == "neuralut_assemble")
+    if ours["served"]["fused"]["kernel"] != "lut_cascade_resident":
+        fail(f"paper table4: the Assemble artifact's fused kernel is "
+             f"{ours['served']['fused']['kernel']}")
+    lut_rows = stream_kernels(
+        types.SimpleNamespace(net=served_nets[rows.index(ours)]),
+        np.random.RandomState(seed + 15), dev, smi, b=pt.SERVE_BLOCK,
+        path="paper tables/table4", task="nid Assemble artifact (table4)")
+    for k in lut_rows:
+        k["launches"] = lut[k["name"]]
+    k4_rows = paper_k4_rows(models, smi)
+    for m in models:
+        del m["calls"]
+    out = {"seed": PAPER_SEED, "train_s": t_train, "k4_hold_s": t_hold,
+           "k4_launches": k4, "lut_launches": lut, "k4_held": held,
+           "per_model_k4": {m["model"]: m["k4"] for m in models},
+           "rows": [{k: v for k, v in r.items() if k != "served"}
+                    for r in rows],
+           "served": {r["model"]: r["served"] for r in rows},
+           "kernels": [dict(k, route="cuda", source=SOURCES[k["name"]],
+                            replaces=REPLACES[k["name"]])
+                       for k in lut_rows + k4_rows]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"paper table4 on the card (seed {PAPER_SEED}, {pt.STEPS} steps):"
+          f" {t_train:.1f} s; K4 launches {k4}; every layout held "
+          f"({t_hold:.1f} s); served K1/K2/K3 {lut} [{smi}]", flush=True)
+    for r in out["rows"]:
+        print(f"  {r['model']}: acc {r['acc']}, folded {r['folded_acc']}, "
+              f"LUTs {r['luts']}, ADP {r['area_delay']} "
+              f"(x{r['area_delay_vs_ours']}); hwcost == reference, "
+              f"fused/pallas == take == CPU load", flush=True)
+    print(f"phase 15 (the paper's tables): {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def main(seed: int) -> dict:
     """Run every phase; return the report (exits on the first failure)."""
     import numpy as np
@@ -5666,6 +5897,9 @@ def main(seed: int) -> dict:
     # -- phase 14: the autotuner's measurement path (slice 14) ----------------
     report["autotune"] = autotune_phase(dev, smi, seed, art_dir)
 
+    # -- phase 15: the paper's tables (slice 17) --------------------------------
+    report["paper_tables"] = paper_tables_phase(dev, smi, seed)
+
     for k in kernels:
         if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
@@ -5743,6 +5977,9 @@ def main(seed: int) -> dict:
                             replaces=REPLACES[k["name"]]))
     # the autotuner's K1 and K2 at its codes: launches of its runs
     kernels.extend(report["autotune"]["kernels"])
+    # Table IV's K4 layouts and K1 / K3 at its Assemble artifact: launches
+    # of its trainings, folds and serving
+    kernels.extend(report["paper_tables"]["kernels"])
     report["kernels"] = kernels
     report["profiler_lead_lost"] = {str(n): LEAD_LOST.count(n)
                                     for n in sorted(set(LEAD_LOST))}
@@ -5877,6 +6114,13 @@ if __name__ == "__main__":
             "candidates", "distinct_launches", "launches", "best_s",
             "winner", "tune_s")} for t in ("nid", "mnist")},
         "seconds": au["seconds"]}}))
+    pa = rep["paper_tables"]
+    print(json.dumps({"paper_tables": {
+        "table4": [{key: r[key] for key in (
+            "model", "acc", "folded_acc", "luts", "area_delay",
+            "area_delay_vs_ours")} for r in pa["rows"]],
+        "k4_launches": pa["k4_launches"], "lut_launches": pa["lut_launches"],
+        "train_s": pa["train_s"], "seconds": pa["seconds"]}}))
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,11 +1,17 @@
 """Backend registry: name -> LookupBackend factory.
 
 Built-in backends register when ``repro_torch.backends`` is imported;
-``REPRO_LUT_BACKEND`` names the default backend picked by :func:`resolve`
-(the same variable the reference reads).
+out-of-tree code registers with the same :func:`register` decorator
+(importing its module is the registration).
+``REPRO_TORCH_LUT_BACKEND_PLUGINS`` (comma-separated module paths) pulls
+such modules in without code changes; it is the port's own variable, since
+the reference's ``REPRO_LUT_BACKEND_PLUGINS`` names modules that register
+into the reference.  ``REPRO_LUT_BACKEND`` names the default backend
+picked by :func:`resolve` (the same variable the reference reads).
 """
 from __future__ import annotations
 
+import importlib
 import os
 from typing import Callable, Dict, Optional, Tuple
 
@@ -13,9 +19,11 @@ from repro_torch.backends.base import LookupBackend
 
 DEFAULT_BACKEND = "take"
 ENV_BACKEND = "REPRO_LUT_BACKEND"
+ENV_PLUGINS = "REPRO_TORCH_LUT_BACKEND_PLUGINS"
 
 _FACTORIES: Dict[str, Callable[[], LookupBackend]] = {}
 _INSTANCES: Dict[str, LookupBackend] = {}
+_PLUGINS_LOADED = False
 
 
 def register(name: str,
@@ -35,13 +43,39 @@ def unregister(name: str) -> None:
     _INSTANCES.pop(name, None)
 
 
+def load_plugins() -> None:
+    """Import the modules named in ``REPRO_TORCH_LUT_BACKEND_PLUGINS``
+    (once).
+
+    Every module is tried even after an earlier one fails, then one
+    ``ImportError`` names every failure.  A failed load is not latched:
+    the next registry call tries again, so a caller that swallows the
+    first error cannot go on without the plugins."""
+    global _PLUGINS_LOADED
+    if _PLUGINS_LOADED:
+        return
+    failures = []
+    for mod in filter(None, os.environ.get(ENV_PLUGINS, "").split(",")):
+        try:
+            importlib.import_module(mod.strip())
+        except Exception as e:  # noqa: BLE001 - report, don't mask others
+            failures.append(f"{mod.strip()} ({e})")
+    if failures:
+        raise ImportError(
+            "failed to import lookup-backend plugin module(s): "
+            + "; ".join(failures))
+    _PLUGINS_LOADED = True
+
+
 def available() -> Tuple[str, ...]:
     """Registered backend names, in registration order."""
+    load_plugins()
     return tuple(_FACTORIES)
 
 
 def get(name: str) -> LookupBackend:
     """Instantiate (and memoize) the backend registered under ``name``."""
+    load_plugins()
     if name not in _FACTORIES:
         raise ValueError(
             f"unknown lookup backend {name!r}; registered: "

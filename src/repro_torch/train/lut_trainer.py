@@ -221,11 +221,7 @@ def stream_accuracy(cell, params: LUTNet, data, *, folded: bool = False,
     else:
         logits_seq, _ = cell_mod.apply_sequence(params, cell, x,
                                                 training=False)
-    logits = logits_seq[:, -1].cpu().numpy()
-    if cell.n_out == 1:
-        pred = (logits[:, 0] > 0).astype(np.int32)
-    else:
-        pred = logits.argmax(-1)
+    pred = predicted_classes(logits_seq[:, -1].cpu().numpy())
     return float((pred == y).mean())
 
 
@@ -517,6 +513,14 @@ def train_population_rolled(cfg: AssembleConfig, bounds: Bounds,
     return dataclasses.replace(res, losses=last)
 
 
+def predicted_classes(logits: np.ndarray) -> np.ndarray:
+    """Classes from logits ``[..., n_out]``: a positive logit is class 1 of
+    a single output; otherwise the largest logit's class."""
+    if logits.shape[-1] == 1:
+        return (logits[..., 0] > 0).astype(np.int32)
+    return logits.argmax(-1)
+
+
 @torch.no_grad()
 def population_accuracy(cfg: AssembleConfig, pop: LUTNet, bounds: Bounds,
                         data: Dataset, *, max_eval: int = 1024) -> np.ndarray:
@@ -524,11 +528,7 @@ def population_accuracy(cfg: AssembleConfig, pop: LUTNet, bounds: Bounds,
     y = np.asarray(data.y_test[:max_eval])
     logits = population_forward(pop, cfg, bounds, data.x_test[:max_eval],
                                 training=False).cpu().numpy()
-    if cfg.layers[-1].units == 1:
-        pred = (logits[..., 0] > 0).astype(np.int32)
-    else:
-        pred = logits.argmax(-1)
-    return (pred == y[None, :]).mean(axis=-1)
+    return (predicted_classes(logits) == y[None, :]).mean(axis=-1)
 
 
 @torch.no_grad()
@@ -543,12 +543,7 @@ def accuracy(cfg: AssembleConfig, params: LUTNet, data: Dataset, *,
         logits = folding.folded_logits(net, x)
     else:
         logits = assemble.apply(params, cfg, x, training=False)
-    logits = logits.cpu().numpy()
-    if cfg.layers[-1].units == 1:
-        pred = (logits[:, 0] > 0).astype(np.int32)
-    else:
-        pred = logits.argmax(-1)
-    return float((pred == y).mean())
+    return float((predicted_classes(logits.cpu().numpy()) == y).mean())
 
 
 def dense_mlp_reference(data: Dataset, widths: Sequence[int], *,
@@ -596,6 +591,4 @@ def dense_mlp_reference(data: Dataset, widths: Sequence[int], *,
         logits = fwd(torch.from_numpy(
             np.asarray(data.x_test[:2048])).to(dev)).cpu().numpy()
     yt = np.asarray(data.y_test[:2048])
-    pred = ((logits[:, 0] > 0).astype(np.int32) if binary
-            else logits.argmax(-1))
-    return float((pred == yt).mean())
+    return float((predicted_classes(logits) == yt).mean())

@@ -275,3 +275,83 @@ def test_registry_register_and_env_resolution(monkeypatch):
         tbackends.unregister("echo")
     with pytest.raises(ValueError, match="unknown lookup backend"):
         tbackends.get("echo")
+
+
+# -- out-of-tree backends (REPRO_TORCH_LUT_BACKEND_PLUGINS) -------------------
+
+PLUGIN = "torch_backend_plugin"     # tests/torch_backend_plugin.py
+
+
+@pytest.fixture
+def plugin_env(monkeypatch):
+    """A registry that has loaded no plugin yet, and neither package's
+    plugin variable set; ``echo`` is dropped again afterwards."""
+    import sys
+    from repro_torch.backends import registry
+    monkeypatch.setattr(registry, "_PLUGINS_LOADED", False)
+    monkeypatch.delenv(registry.ENV_PLUGINS, raising=False)
+    monkeypatch.delenv("REPRO_LUT_BACKEND_PLUGINS", raising=False)
+    sys.modules.pop(PLUGIN, None)
+    yield registry
+    sys.modules.pop(PLUGIN, None)
+    tbackends.unregister("echo")
+
+
+def test_plugin_backend_serves_like_a_builtin(plugin_env, monkeypatch):
+    """A backend loaded through the port's variable answers through
+    ``predict_codes`` and ``LUTEngine`` with ``take``'s codes."""
+    from repro_torch.serve.lut_engine import LUTEngine
+    assert plugin_env.ENV_PLUGINS == "REPRO_TORCH_LUT_BACKEND_PLUGINS"
+    monkeypatch.setenv(plugin_env.ENV_PLUGINS, PLUGIN)
+    assert "echo" in tbackends.available()
+    _, tnet = nets("nid")
+    x = _x(tnet.cfg, 70, seed=11)
+    want = tnet.predict_codes(x, backend="take").numpy()
+    np.testing.assert_array_equal(
+        tnet.predict_codes(x, backend="echo").numpy(), want)
+    eng = LUTEngine(tnet, block=32, backend="echo")
+    np.testing.assert_array_equal(eng.run(x),
+                                  tnet.predict(x, backend="take").numpy())
+    # loaded once: later registry calls do not import it again
+    tbackends.get("echo")
+    tbackends.resolve("echo")
+    import torch_backend_plugin
+    assert torch_backend_plugin.LOADS == [1]
+
+
+def test_plugin_failures_are_reported_together(plugin_env, monkeypatch):
+    """Every listed module is tried; one ImportError names each failure,
+    and a good module listed among them still registers."""
+    monkeypatch.setenv(plugin_env.ENV_PLUGINS,
+                       f"no_such_plugin_a, {PLUGIN}, no_such_plugin_b")
+    with pytest.raises(ImportError) as err:
+        tbackends.available()
+    msg = str(err.value)
+    assert "no_such_plugin_a" in msg and "no_such_plugin_b" in msg
+    assert PLUGIN not in msg.split(":", 1)[1]
+    assert "echo" in plugin_env._FACTORIES
+
+
+def test_failed_plugin_load_is_retried(plugin_env, monkeypatch):
+    """A failed load is not latched: every registry entry point tries
+    again, and succeeds once the variable names importable modules."""
+    monkeypatch.setenv(plugin_env.ENV_PLUGINS, "no_such_plugin_c")
+    for call in (tbackends.available, lambda: tbackends.get("take"),
+                 tbackends.resolve):
+        with pytest.raises(ImportError, match="no_such_plugin_c"):
+            call()
+    assert plugin_env._PLUGINS_LOADED is False
+    monkeypatch.setenv(plugin_env.ENV_PLUGINS, PLUGIN)
+    assert "echo" in tbackends.available()
+    assert plugin_env._PLUGINS_LOADED is True
+
+
+def test_reference_plugin_variable_is_not_read(plugin_env, monkeypatch):
+    """The reference's ``REPRO_LUT_BACKEND_PLUGINS`` names modules that
+    register into the reference; the port ignores it."""
+    import sys
+    monkeypatch.setenv("REPRO_LUT_BACKEND_PLUGINS",
+                       f"{PLUGIN},no_such_plugin_d")
+    assert "echo" not in tbackends.available()
+    assert PLUGIN not in sys.modules
+    assert plugin_env._PLUGINS_LOADED is True

@@ -50,7 +50,13 @@ def test_port_modules_import_without_jax_or_reference():
 
 
 def test_sources_name_no_jax_or_reference_import():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The package, ``chip_smoke.py`` and the port's own benches and
+    examples (``benchmarks/torch_*.py``, ``examples/torch_*.py``)."""
+    benches = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert benches and examples
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + benches + examples)
     for path in files:
         hits = FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
