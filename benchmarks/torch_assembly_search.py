@@ -98,7 +98,7 @@ def _task_entry(res, dev) -> dict:
 def _budget_summary(budget) -> dict:
     return {"rungs": list(budget.rungs), "n_candidates": budget.n_candidates,
             "promote": budget.promote, "min_frontier": budget.min_frontier,
-            "retrain_steps": budget.retrain_steps}
+            "retrain_steps": budget.retrain_steps, "seed": budget.seed}
 
 
 def _sync(dev) -> None:

@@ -19,11 +19,23 @@ behind a ``StreamRouter``.
     backend; every stream's full sequence must equal ``predict_sequence``
     on that backend.
 
-The reference benchmark's hot-swap part (a stateful swap through the
-multi-tenant fleet) is not timed here: ``tests/test_torch_fleet.py`` holds
-the fleet's stream lane and its swaps against the reference.
+  * **Stateful hot swaps** through the multi-tenant fleet's stream lane
+    (``LUTFleet.open_stream`` / ``submit_stream`` / ``deploy``, lanes on
+    ``fused``): a deploy with an identical in-boundary while steps are in
+    flight carries every live state verbatim (``carried``); a deploy
+    whose input ``log_scale`` moved by +0.1 re-quantizes every live state
+    (``requantized``), and serving after it must equal the new cell's own
+    recurrence from the migrated state (``migrate_state_codes``).  Both
+    must drop no step and serve no wrong answer.
 
-    python3 benchmarks/torch_stream_serving.py [--device cuda] [--out PATH]
+``contract_violations`` is the serving contract; the bench's exit and the
+``stream`` suite of ``benchmarks/torch_check_regression.py`` both call it.
+``--fast`` is the smoke size (``FAST_KW``: two small scales, a short churn,
+8 swapped streams); its record has ``full_size`` false, and only a full
+record must reach 1,000 concurrent streams.
+
+    python3 benchmarks/torch_stream_serving.py [--device cuda] [--fast]
+        [--out PATH]
 
 Runs on the card by default and fails without one; ``--device cpu`` runs
 the plain path (its times are the CPU's, not the card's).
@@ -33,8 +45,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import copy
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -43,6 +57,11 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))   # traffic.py (numpy only)
 
 DEFAULT_OUT = os.path.join(ROOT, "experiments", "TORCH_stream.json")
 SCALES = (64, 256, 1024, 4096)
+SCHEMA_VERSION = 1
+# the smoke size (chip_smoke.py's phase 16 and torch_run.py --fast)
+FAST_KW = dict(scales=(16, 64), t_steps=4, reps=2, block=64,
+               churn_events=24, swap_streams=8, full=False)
+SWAP_BACKEND = "fused"   # the lanes of the hot swaps (K1 on the card)
 CHURN_BLOCK = 8      # small blocks, so that the churned streams share them
 TRACE_LEADS = (8, 64, 512)   # spin launches opening each profiled replay
 KERNEL = {"fused": ("lut_cascade_resident", "cascade_resident_kernel"),
@@ -96,7 +115,7 @@ def _kernel_device_ms(cell, xs, backend: str, block: int, depth: int):
         return None
     kname, sub = KERNEL[backend]
     for lead in TRACE_LEADS:
-        build.reset_counters()
+        before = build.launch_counts().get(kname, 0)
         with torch.profiler.profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(lead):
@@ -105,7 +124,7 @@ def _kernel_device_ms(cell, xs, backend: str, block: int, depth: int):
             _, router = _replay(cell, xs, backend, block, depth)
             torch.cuda._sleep(20_000_000)
             torch.cuda.synchronize()
-        launched = build.launch_counts().get(kname, 0)
+        launched = build.launch_counts().get(kname, 0) - before
         total, traced = 0.0, 0
         for ev in prof.key_averages():
             if sub in ev.key:
@@ -125,17 +144,18 @@ def scaling(cell, scales, t_steps: int, block: int, depth: int, reps: int,
     from repro_torch.kernels import build
     points = []
     for n in scales:
-        xs = np.random.default_rng(seed + n).uniform(
-            0.0, 1.0, (n, t_steps, cell.cell.n_in)).astype(np.float32)
+        xs = stream_batch(n, t_steps, cell.cell.n_in, seed + n)
         ref, _, ref_s = cell.predict_sequence(xs, backend="take")
         ref, ref_s = ref.cpu().numpy(), ref_s.cpu().numpy()
         for be in backends:
             _replay(cell, xs[:, :2], be, block, depth)     # warm-up
             runs = []
             for _ in range(max(reps, 1)):
-                build.reset_counters()
+                before = build.launch_counts()
                 dt, router = _replay(cell, xs, be, block, depth)
-                runs.append((dt, router, build.launch_counts()))
+                runs.append((dt, router, {
+                    k: v - before.get(k, 0)
+                    for k, v in build.launch_counts().items()}))
             identical = all(
                 np.array_equal(router.sessions[sid].codes(), ref[sid])
                 and np.array_equal(router.store.get(sid), ref_s[sid])
@@ -211,21 +231,186 @@ def churn(cell, n_events: int, block: int, depth: int, seed: int) -> dict:
             "per_backend": per_backend}
 
 
-def violations(results: dict) -> list:
+def stream_batch(n: int, t: int, n_in: int, seed: int):
+    """``[n, t, n_in]`` inputs in [0, 1) from ``seed`` (the reference
+    bench's ``_stream_batch``)."""
+    import numpy as np
+    return np.random.default_rng(seed).uniform(
+        0.0, 1.0, (n, t, n_in)).astype(np.float32)
+
+
+def _swap_fleet(cell, xs, half: int, block: int, depth: int):
+    """A fleet serving ``cell`` as tenant ``"cell"`` on ``SWAP_BACKEND``
+    with one stream per row of ``xs``, each fed its first ``half`` steps."""
+    from repro_torch.serve import LUTFleet
+    fleet = LUTFleet(block=block, depth=depth)
+    fleet.register("cell", cell, backend=SWAP_BACKEND)
+    for sid in range(len(xs)):
+        fleet.open_stream("cell", sid)
+        fleet.submit_stream("cell", sid, xs[sid, :half])
+    return fleet
+
+
+def _deploy(fleet, cell):
+    """Deploy ``cell`` to the tenant through a saved artifact."""
+    with tempfile.TemporaryDirectory() as d:
+        return fleet.deploy("cell", cell.save(os.path.join(d, "v2.npz")))
+
+
+def _swap_record(fleet, event, n_streams: int, wrong: int) -> dict:
+    s = fleet.summary("cell")
+    return {
+        "streams": n_streams, "requests": s["requests"],
+        "deploy_ok": bool(event.ok), "to_version": event.to_version,
+        "state_migration": s["swap_history"][-1].get("state_migration"),
+        "dropped": s["requests"] - s["completed"], "wrong": int(wrong),
+    }
+
+
+def hot_swap_carried(cell, n_streams: int, t_steps: int, block: int,
+                     depth: int, seed: int) -> dict:
+    """Deploy v2 (the same tables and in-boundary) while steps are in
+    flight: live state carries verbatim, and every stream's whole sequence
+    still equals the offline scan."""
+    xs = stream_batch(n_streams, t_steps, cell.cell.n_in, seed)
+    half = t_steps // 2
+    fleet = _swap_fleet(cell, xs, half, block, depth)
+    fleet.tick()                                   # steps now in flight
+    event = _deploy(fleet, cell)
+    for sid in range(n_streams):
+        fleet.submit_stream("cell", sid, xs[sid, half:])
+    fleet.pump()
+    ref = cell.predict_sequence(xs, backend=SWAP_BACKEND)[0].cpu().numpy()
+    lane = fleet._lanes["cell"]
+    wrong = sum(int((lane.sessions[sid].codes() != ref[sid]).any(axis=-1)
+                    .sum()) for sid in range(n_streams))
+    return _swap_record(fleet, event, n_streams, wrong)
+
+
+def hot_swap_requantized(cell, params, n_streams: int, t_steps: int,
+                         block: int, depth: int, seed: int) -> dict:
+    """Deploy a v2 folded from ``params`` with the input ``log_scale`` moved
+    by +0.1: every live state is re-quantized onto the new boundary, and
+    serving after the swap equals v2's own recurrence from the migrated
+    state."""
+    import numpy as np
+    import torch
+    from repro_torch.stream import cell as cell_mod
+
+    params2 = copy.deepcopy(params)
+    with torch.no_grad():
+        params2.in_q.log_scale.add_(0.1)
+    cell2 = cell_mod.compile_cell(params2, cell.cell)
+    xs = stream_batch(n_streams, t_steps, cell.cell.n_in, seed)
+    half = t_steps // 2
+    fleet = _swap_fleet(cell, xs, half, block, depth)
+    fleet.pump()                  # drained: the v1/v2 boundary is exact
+    lane = fleet._lanes["cell"]
+    s_before = np.stack([lane.store.get(sid) for sid in range(n_streams)])
+    event = _deploy(fleet, cell2)
+    for sid in range(n_streams):
+        fleet.submit_stream("cell", sid, xs[sid, half:])
+    fleet.pump()
+    s_mig = cell_mod.migrate_state_codes(cell, cell2, s_before)
+    expect = cell2.predict_sequence(xs[:, half:], s0_codes=s_mig,
+                                    backend=SWAP_BACKEND)[0].cpu().numpy()
+    wrong = sum(int((lane.sessions[sid].codes()[half:] != expect[sid])
+                    .any(axis=-1).sum()) for sid in range(n_streams))
+    return _swap_record(fleet, event, n_streams, wrong)
+
+
+def hot_swaps(cell, params, n_streams: int, t_steps: int, block: int,
+              depth: int, seed: int) -> dict:
+    """Both stateful swaps (the reference bench's seeds: +3 and +4)."""
+    out = {"carried": hot_swap_carried(cell, n_streams, max(t_steps, 4),
+                                       block, depth, seed + 3),
+           "requantized": hot_swap_requantized(
+               cell, params, n_streams, max(t_steps, 4), block, depth,
+               seed + 4)}
+    for mode, hs in out.items():
+        print(f"hot_swap[{mode}] migration={hs['state_migration']} "
+              f"dropped={hs['dropped']} wrong={hs['wrong']} "
+              f"requests={hs['requests']}", flush=True)
+    return out
+
+
+def contract_violations(results: dict) -> list:
+    """The streaming serving contract: the reference's
+    (``benchmarks/stream_serving.py`` ``contract_violations``, the same
+    messages), plus streams of the churn left open, which the reference's
+    record does not carry."""
     bad = []
     for p in results["scaling"]:
         if not p["bit_identical"]:
-            bad.append(f"scale {p['streams']} {p['backend']}: not "
+            bad.append(f"scale {p['streams']}: streamed codes not "
                        "bit-identical to the offline scan")
     for be, r in results["churn"]["per_backend"].items():
-        if not r["bit_identical"] or r["dropped"] or not r["closed"]:
-            bad.append(f"churn {be}: {r}")
+        if not r["bit_identical"]:
+            bad.append(f"churn[{be}]: streamed codes not bit-identical")
+        if r["dropped"]:
+            bad.append(f"churn[{be}]: {r['dropped']} steps dropped")
+        if not r.get("closed", True):
+            bad.append(f"churn[{be}]: closed streams left open")
+    for mode, hs in results["hot_swap"].items():
+        if not hs["deploy_ok"]:
+            bad.append(f"hot_swap[{mode}]: deploy did not land")
+        if hs["state_migration"] != mode:
+            bad.append(f"hot_swap[{mode}]: migration recorded as "
+                       f"{hs['state_migration']!r}")
+        if hs["dropped"]:
+            bad.append(f"hot_swap[{mode}]: {hs['dropped']} steps dropped")
+        if hs["wrong"]:
+            bad.append(f"hot_swap[{mode}]: {hs['wrong']} wrong answers")
+    if results["full_size"]:
+        peak = max(p["streams"] for p in results["scaling"])
+        if peak < 1000:
+            bad.append(f"full sweep peaked at {peak} concurrent streams "
+                       "(< 1000)")
     return bad
+
+
+def sweep(cell, params, dev, *, scales=SCALES, t_steps: int = 49,
+          block: int = 256, depth: int = 2, reps: int = 3,
+          churn_events: int = 60, swap_streams: int = 32, seed: int = 0,
+          full: bool = True) -> dict:
+    """The whole record: scaling on ``fused`` and ``pallas``, churn per
+    backend, both hot swaps."""
+    import torch
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    cc = cell.cell
+    return {
+        "schema_version": SCHEMA_VERSION,
+        "device": {"type": dev.type, "name": name,
+                   "nvidia_smi": _smi() if dev.type == "cuda" else None},
+        "cell": {"task": "seqmnist_reduced", "n_in": cc.n_in,
+                 "n_state": cc.n_state, "n_out": cc.n_out,
+                 "layers": len(cc.net.layers)},
+        "block": block, "depth": depth, "t_steps": t_steps,
+        "reps": reps, "full_size": full,
+        "scaling": scaling(cell, scales, t_steps, block, depth, reps,
+                           seed + 1, ("fused", "pallas")),
+        "churn": churn(cell, churn_events, CHURN_BLOCK, depth, seed + 2),
+        "hot_swap": hot_swaps(cell, params, swap_streams, t_steps, block,
+                              depth, seed),
+    }
+
+
+def make_cell(seed: int, dev):
+    """(parameters, compiled cell) of ``seqmnist_reduced`` from ``seed``."""
+    from repro_torch.configs import paper_tasks
+    from repro_torch.core import assemble
+    from repro_torch.stream import cell as cell_mod
+    cc = paper_tasks.stream_task_config("seqmnist_reduced")
+    params = assemble.init(seed, cc.net, device=dev)
+    return params, cell_mod.compile_cell(params, cc)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fast", action="store_true",
+                    help="the smoke size (FAST_KW)")
     ap.add_argument("--scales", default=",".join(map(str, SCALES)))
     ap.add_argument("--steps", type=int, default=49)
     ap.add_argument("--block", type=int, default=256)
@@ -236,37 +421,20 @@ def main() -> None:
     ap.add_argument("--out", default=DEFAULT_OUT)
     args = ap.parse_args()
 
-    import torch
     from repro_torch import device as _device
-    from repro_torch.configs import paper_tasks
-    from repro_torch.core import assemble
-    from repro_torch.stream import cell as cell_mod
 
     dev = _device.resolve(args.device)
-    cc = paper_tasks.stream_task_config("seqmnist_reduced")
-    cell = cell_mod.compile_cell(
-        assemble.init(args.seed, cc.net, device=dev), cc)
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu")
-    results = {
-        "device": {"type": dev.type, "name": name,
-                   "nvidia_smi": _smi() if dev.type == "cuda" else None},
-        "cell": {"task": "seqmnist_reduced", "n_in": cc.n_in,
-                 "n_state": cc.n_state, "n_out": cc.n_out,
-                 "layers": len(cc.net.layers)},
-        "block": args.block, "depth": args.depth, "t_steps": args.steps,
-        "reps": args.reps,
-        "scaling": scaling(cell, [int(s) for s in args.scales.split(",")],
-                           args.steps, args.block, args.depth, args.reps,
-                           args.seed + 1, ("fused", "pallas")),
-        "churn": churn(cell, args.churn_events, CHURN_BLOCK,
-                       args.depth, args.seed + 2),
-    }
+    params, cell = make_cell(args.seed, dev)
+    kw = (FAST_KW if args.fast else dict(
+        scales=[int(s) for s in args.scales.split(",")], t_steps=args.steps,
+        block=args.block, reps=args.reps, churn_events=args.churn_events))
+    results = sweep(cell, params, dev, depth=args.depth, seed=args.seed,
+                    **kw)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
     print(f"{results['device']} -> {args.out}")
-    bad = violations(results)
+    bad = contract_violations(results)
     if bad:
         raise SystemExit("stream serving contract violated:\n  "
                          + "\n  ".join(bad))

@@ -106,7 +106,18 @@ shapes, and drives both main paths:
   ``pallas`` (K3) against ``take`` and a CPU load, the ``hwcost`` columns
   of Tables III and IV and Fig. 2 against the reference's record
   (``experiments/TORCH_paper_tables_reference.json``), every K4 layout
-  held against the plain version and the reference kernel.
+  held against the plain version and the reference kernel;
+* the serving benches and their gate (slice 18): ``benchmarks/
+  torch_lut_backends.py`` (every backend on the reduced ``mnist``,
+  ``jsc`` and ``nid`` against ``take``), ``torch_lut_throughput.py``
+  (kernel stream, engine depth 1 against 2, batch placement over 1, 2 and
+  4 slots of the card) and both stateful hot swaps of
+  ``torch_stream_serving.py`` at their smoke sizes, their records read
+  back through ``torch_check_regression.py``'s extractors (contracts and
+  launch counts fail the phase; drift against the committed baselines and
+  the timing contracts are reported), ``torch_roofline.py --lut``'s
+  ``gpu`` rows against the card's own plans, and K1 and K3 at the
+  throughput bench's layout.
 
 Served codes are checked against the ``take`` backend on the card and the
 plain CPU path, folded codes against the quantized model, and every kernel
@@ -115,8 +126,8 @@ standard output are a JSON object with every kernel's launches, error and
 times, the card's ``name, power.limit``, then ``{"ok": true, "device":
 {...}}``; a ``{"fleet": ...}``, a ``{"search": ...}``, an
 ``{"lm_families": ...}``, an ``{"lm_train": ...}``, an
-``{"lm_dist": ...}``, an ``{"autotune": ...}`` and a ``{"paper_tables":
-...}`` line come before them.  A full report goes to ``build/chip_smoke/report.json``.
+``{"lm_dist": ...}``, an ``{"autotune": ...}``, a ``{"paper_tables":
+...}`` and a ``{"benches": ...}`` line come before them.  A full report goes to ``build/chip_smoke/report.json``.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -5510,6 +5521,178 @@ def paper_tables_phase(dev, smi: str, seed: int) -> dict:
     return out
 
 
+# the gate's suites over the records phase 16 writes; the kernel suite's
+# one violation (fused not fastest) is a timing contract, reported and not
+# failed on (host clocks move between calls)
+BENCH_SUITES = ("throughput", "kernel", "stream")
+TIMING_SUITES = ("kernel",)
+
+
+def _bench_launch_rule(bk_res: dict, tp_res: dict, st_res: dict) -> list:
+    """Launches off the rule: ``fused`` one K1 launch a call on a reduced
+    task (its tables are resident) and one a slot on a mesh, ``pallas``
+    one K3 launch a layer, the other backends none; a stream block one K1
+    launch (``fused``) or one K3 launch a cell layer (``pallas``)."""
+    k1, k3 = "lut_cascade_resident", "lut_lookup"
+    bad = []
+    for task, t in bk_res["tasks"].items():
+        n_layers = len(t["config"]["layers"])
+        want = {"fused": {k1: 1.0}, "pallas": {k3: float(n_layers)}}
+        for c in t["cells"]:
+            for name, got in c["launches_per_call"].items():
+                if got != want.get(name, {}):
+                    bad.append(f"backends {task} batch {c['batch']} {name}:"
+                               f" {got} a call")
+    for c in tp_res["kernel"]:
+        if c["launches_per_chunk"] != ({k1: 1.0} if c["backend"] == "fused"
+                                       else {}):
+            bad.append(f"kernel sweep {c['backend']} block {c['block']}: "
+                       f"{c['launches_per_chunk']} a chunk")
+    for c in tp_res["mesh"]:
+        if c["launches_per_call"] != ({k1: c["slots"]}
+                                      if c["backend"] == "fused" else {}):
+            bad.append(f"mesh {c['backend']} x{c['slots']}: "
+                       f"{c['launches_per_call']} a call")
+    for p in st_res["scaling"]:
+        want = 1.0 if p["backend"] == "fused" else float(st_res["cell"][
+            "layers"])
+        if p["kernel_launches_per_block"] != want:
+            bad.append(f"stream scale {p['streams']} {p['backend']}: "
+                       f"{p['kernel_launches_per_block']} a block")
+    return bad
+
+
+def _roofline_gpu_rows(rl, out: Path, dev, seed: int) -> dict:
+    """``torch_roofline --lut``'s ``gpu`` rows against ``hopper_mode`` and
+    against the mode the card's own plan of each task stamps."""
+    from repro_torch import pipeline
+    from repro_torch.configs import paper_tasks
+    from repro_torch.kernels import autotune
+    doc = json.loads(Path(rl.write_lut_choices(str(out))).read_text())
+    modes = {}
+    for c in doc["choices"]:
+        if c["device"] != "gpu":
+            continue
+        task = c["task"]
+        hopper = autotune.hopper_mode(rl.task_layers(task),
+                                      c["table_itemsize"])
+        cfg = paper_tasks.task_config(task)
+        net = pipeline.CompiledLUTNetwork(cfg, *random_network(cfg, seed),
+                                          device=dev)
+        planned = net.compile_backend("fused").plan.meta["tuning"]["mode"]
+        if not c["tuning"]["mode"] == hopper == planned:
+            fail(f"roofline --lut {task}: gpu row {c['tuning']['mode']}, "
+                 f"hopper_mode {hopper}, the card's plan {planned}")
+        modes[task] = planned
+    return modes
+
+
+def benches_phase(dev, smi: str, seed: int, art_dir: Path) -> dict:
+    """Slice 18's main path: the serving benches at their smoke sizes on
+    the card, through their own functions (``benchmarks/torch_lut_backends
+    .py``, ``torch_lut_throughput.py`` with its 1, 2 and 4 slot cells,
+    ``torch_stream_serving.py`` with both stateful hot swaps), the records
+    written as the benches write them and read back through the gate's
+    extractors (``torch_check_regression.py``): any contract violation,
+    bit mismatch or launch count off the rule fails; the drift against the
+    committed baselines and the timing contracts are reported.  Then
+    ``torch_roofline --lut``'s ``gpu`` rows against the card's plans, and
+    K1 and K3 at the throughput bench's layout (``nid_reduced``, a block
+    of 256) against their plain versions."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    import torch_check_regression as cr
+    import torch_lut_backends as bk
+    import torch_lut_throughput as tp
+    import torch_roofline as rl
+    import torch_stream_serving as st
+
+    out_dir = art_dir / "benches"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    params, cell = st.make_cell(seed, dev)
+    torch.cuda.synchronize()
+    build.reset_counters()
+    bk_res = bk.sweep(**bk.FAST_KW, seed=seed, device=dev)
+    tp_res = tp.sweep(**tp.FAST_KW, seed=seed, device=dev)
+    st_res = st.sweep(cell, params, dev, seed=seed, **st.FAST_KW)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in build.launch_counts().items() if v}
+    for kname in ("lut_cascade_resident", "lut_lookup"):
+        if not counts.get(kname):
+            fail(f"benches: {kname} was not launched ({counts})")
+    bk.write_results(bk_res, str(out_dir / cr.BACKENDS))
+    tp.write_results(tp_res, str(out_dir / cr.THROUGHPUT))
+    (out_dir / cr.STREAM).write_text(json.dumps(st_res, indent=1))
+    bad = bk.violations(bk_res) + [
+        e for e in tp.exits(tp_res, fast=True) if "bit-identical" in e]
+    bad += _bench_launch_rule(bk_res, tp_res, st_res)
+    gate = {}
+    for name in BENCH_SUITES:
+        suite = cr.SUITES[name]
+        metrics, violations = suite.extract(str(out_dir))
+        if name not in TIMING_SUITES:
+            bad += violations
+        base = (json.loads(Path(suite.baseline).read_text())
+                if Path(suite.baseline).exists() else {"metrics": {}})
+        reg, missing, improved = cr.compare(base, metrics, suite.tolerance,
+                                            suite.mode)
+        gate[name] = {"metrics": len(metrics), "violations": violations,
+                      "regressions": reg, "improved": improved,
+                      "compared": len(base["metrics"]) - len(missing)}
+        print(f"gate {name} on this run's smoke records: {len(metrics)} "
+              f"metrics, violations {violations}; against "
+              f"{Path(suite.baseline).name} ({gate[name]['compared']} shared"
+              f" metrics, tol {suite.tolerance}): regressions {reg}, "
+              f"improved {improved} (reported only)", flush=True)
+    if bad:
+        fail("benches: " + "; ".join(map(str, bad)))
+    timing = {"fused_fastest": {c["block"]: c["fused_fastest"]
+                                for c in tp_res["kernel"]
+                                if c["backend"] == "fused"},
+              "fused_margin": {c["block"]: c["fused_margin"]
+                               for c in tp_res["kernel"]
+                               if c["backend"] == "fused"},
+              "async_speedup": {f"{c['backend']}@{c['block']}":
+                                c["async_speedup"] for c in tp_res["engine"]}}
+    print(f"benches timing contracts (reported only): {timing} [{smi}]",
+          flush=True)
+    modes = _roofline_gpu_rows(rl, out_dir / "TORCH_AUTOTUNE_choices.json",
+                               dev, seed)
+    net = bk.make_network("nid", seed, dev)
+    rows = stream_kernels(
+        types.SimpleNamespace(net=net), np.random.RandomState(seed + 16),
+        dev, smi, b=256, path="benches/lut_throughput",
+        task="nid_reduced (torch_lut_throughput)")
+    for k in rows:
+        k["launches"] = counts.get(k["name"], 0)
+    out = {"launches": counts, "gate": gate, "timing": timing,
+           "roofline_gpu_modes": modes,
+           "hot_swap": st_res["hot_swap"],
+           "slots": [{key: c[key] for key in (
+               "backend", "slots", "physical_devices", "rows_per_s",
+               "bit_identical")} for c in tp_res["mesh"]],
+           "backends_us": {t: v["cells"][0]["us"]
+                           for t, v in bk_res["tasks"].items()},
+           "kernels": [dict(k, route="cuda", source=SOURCES[k["name"]],
+                            replaces=REPLACES[k["name"]]) for k in rows]}
+    out["seconds"] = time.perf_counter() - t0
+    swaps = [(m, h["state_migration"], h["wrong"], h["dropped"])
+             for m, h in st_res["hot_swap"].items()]
+    print(f"benches: backends, throughput (slots 1, 2, 4 of {dev}) and "
+          f"stream hot swaps (mode, migration, wrong, dropped) {swaps} "
+          f"bit-identical and on the launch rule, launches {counts}; "
+          f"roofline gpu modes == the card's plans {modes} [{smi}]",
+          flush=True)
+    print(f"phase 16 (the serving benches): {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def main(seed: int) -> dict:
     """Run every phase; return the report (exits on the first failure)."""
     import numpy as np
@@ -5900,6 +6083,9 @@ def main(seed: int) -> dict:
     # -- phase 15: the paper's tables (slice 17) --------------------------------
     report["paper_tables"] = paper_tables_phase(dev, smi, seed)
 
+    # -- phase 16: the serving benches and their gate (slice 18) ---------------
+    report["benches"] = benches_phase(dev, smi, seed, art_dir)
+
     for k in kernels:
         if k["name"] == "flash_attention_wgmma":
             # the LM serving path: one launch per layer per prefill
@@ -5980,6 +6166,8 @@ def main(seed: int) -> dict:
     # Table IV's K4 layouts and K1 / K3 at its Assemble artifact: launches
     # of its trainings, folds and serving
     kernels.extend(report["paper_tables"]["kernels"])
+    # K1 and K3 at the throughput bench's layout: launches of phase 16's run
+    kernels.extend(report["benches"]["kernels"])
     report["kernels"] = kernels
     report["profiler_lead_lost"] = {str(n): LEAD_LOST.count(n)
                                     for n in sorted(set(LEAD_LOST))}
@@ -6121,6 +6309,15 @@ if __name__ == "__main__":
             "area_delay_vs_ours")} for r in pa["rows"]],
         "k4_launches": pa["k4_launches"], "lut_launches": pa["lut_launches"],
         "train_s": pa["train_s"], "seconds": pa["seconds"]}}))
+    be = rep["benches"]
+    print(json.dumps({"benches": {
+        "launches": be["launches"], "slots": be["slots"],
+        "hot_swap": be["hot_swap"], "timing": be["timing"],
+        "gate": {n: {key: g[key] for key in ("metrics", "violations",
+                                             "compared", "regressions")}
+                 for n, g in be["gate"].items()},
+        "roofline_gpu_modes": be["roofline_gpu_modes"],
+        "seconds": be["seconds"]}}))
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
